@@ -1,0 +1,321 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card, end to end.
+
+Run from the root of a checkout (it needs ``src/repro_torch`` beside it and
+one CUDA device; the kernels are built into ``build/kernels/`` first):
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. print the card's name and power limit, build the four kernels;
+2. hold each kernel against its plain PyTorch version on the card, at the
+   main path's shapes and at ragged ones, and time kernel, plain version and
+   one PyTorch library call with CUDA events (median of 20);
+3. the main path at full size: encode a 600,000 × 2,048 float32 matrix with
+   a (12, 10)-MDS code, then 30 iterations of predict (LSTM) → plan
+   (Algorithm 1) → coded matvec (assigned chunks only) → decode, each checked
+   against a float64 product on the card, then one more encode with the
+   allocator's memory warm; the kernels' launch counters are zeroed just
+   before this phase and read just after it.
+
+The last two lines are the per-kernel record as JSON and the device line.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the main path: the paper's logistic-regression workload as the repo sizes it
+# (benchmarks/fig_overheads.py: (n, k) = (12, 10), D = 600,000; C = 20 chunks
+# as in examples/pagerank.py), with d = 2,048 float32 columns
+N, K, CHUNKS, ROWS, COLS, ITERS = 12, 10, 20, 600_000, 2_048, 30
+REL_ERR_LIMIT = 1e-3
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
+F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
+REPS = 20
+
+KERNELS = {
+    "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
+    "mds_encode": "src/repro/kernels/mds_encode.py:35",
+    "mds_decode": "src/repro/kernels/mds_decode.py:31",
+    "lstm_cell": "src/repro/kernels/lstm_cell.py:46",
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a card",
+              file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    from repro_torch.convert import load_params
+    from repro_torch.core.coded_matmul import CodedMatvec
+    from repro_torch.core.coding import MDSCode
+    from repro_torch.core.predictor import SpeedPredictor
+    from repro_torch.core.s2c2 import general_allocation
+    from repro_torch.core.traces import controlled_traces
+    from repro_torch.kernels import _build, ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # -- 1. card and build ----------------------------------------------------
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s ({len(_build.SOURCES)} sources, one nvcc "
+          "each, in parallel; less if build/kernels/ already held the library)", flush=True)
+
+    def time_ms(fn) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def compare(name, got, want, tol) -> float:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for g, w in zip(got, want):
+            g32, w32 = g.float(), w.float()
+            if g.shape != w.shape or not torch.isfinite(g32).all():
+                raise RuntimeError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} "
+                                   "or non-finite values")
+            if not torch.allclose(g32, w32, rtol=tol, atol=tol):
+                raise RuntimeError(f"{name}: kernel and plain version disagree, max abs "
+                                   f"err {float((g32 - w32).abs().max()):.3e} > {tol}")
+            err = max(err, float((g32 - w32).abs().max()))
+        return err
+
+    records = {}
+
+    def record(name, kernel, plain, library, n_bytes, flops, tol):
+        err = compare(f"{name} (main shape)", kernel(), plain(), tol)
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        library_ms = time_ms(library)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        records[name] = dict(name=name, route="cuda",
+                             source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                             replaces=KERNELS[name], launches=0, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max abs err "
+              f"{err:.3e} (tol {tol})", flush=True)
+
+    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+    rows_w = ROWS // K                   # rows of one coded partition
+    rpc = rows_w // CHUNKS               # rows of one chunk
+
+    # -- 2. every kernel against its plain version ---------------------------
+    # coded_matvec: the main path's launch reads k·C assigned chunks out of
+    # the n·C chunks of the (n·rows, d) coded tensor
+    a = randn(N * rows_w, COLS)
+    x = randn(COLS)
+    ids = torch.randperm(N * CHUNKS, generator=gen, device=dev)[: K * CHUNKS]
+    ids = ids.to(torch.int32)
+    nb = ids.numel()
+    sel = a.view(N * CHUNKS, rpc, COLS)[ids.long()].reshape(-1, COLS)
+    record("coded_matvec",
+           lambda: ops.coded_matvec(a, x, ids, rpc),
+           lambda: ref.coded_matvec_ref(a, x, ids, rpc),
+           lambda: torch.matmul(sel, x),
+           n_bytes=4 * (nb * rpc * COLS + COLS + nb + nb * rpc),
+           flops=2 * nb * rpc * COLS, tol=tol[torch.float32])
+    del a, sel
+    for chunks, br, d, nvec, dt in [(12, 16, 300, 3, torch.float32),
+                                    (5, 8, 130, 2, torch.bfloat16),
+                                    (6, 32, 512, 8, torch.bfloat16),
+                                    (4, 64, 2048, 16, torch.float32),
+                                    (7, 100, 1024, 1, torch.bfloat16)]:
+        a_r, x_r = randn(chunks * br, d, dtype=dt), randn(d, nvec, dtype=dt)
+        ids_r = torch.randperm(chunks, generator=gen, device=dev)[: max(2, chunks // 2)]
+        ids_r = ids_r.to(torch.int32)
+        compare(f"coded_matvec {(chunks, br, d, nvec, dt)}",
+                ops.coded_matvec(a_r, x_r, ids_r, br),
+                ref.coded_matvec_ref(a_r, x_r, ids_r, br), tol[dt])
+
+    # mds_encode: the whole matrix, once
+    g = torch.as_tensor(MDSCode(N, K).generator, dtype=torch.float32, device=dev)
+    blocks = randn(K, rows_w, COLS)
+    plane = rows_w * COLS
+    record("mds_encode",
+           lambda: ops.mds_encode(g, blocks),
+           lambda: ref.mds_encode_ref(g, blocks),
+           lambda: torch.einsum("nk,krd->nrd", g, blocks),
+           n_bytes=4 * (N * K + K * plane + N * plane),
+           flops=2 * N * K * plane, tol=tol[torch.float32])
+    del blocks
+    torch.cuda.empty_cache()
+    for n, k, r, d, dt in [(12, 10, 100, 260, torch.bfloat16), (5, 3, 63, 130, torch.float32),
+                           (5, 3, 63, 130, torch.bfloat16), (4, 4, 16, 640, torch.float32),
+                           (40, 32, 10, 8, torch.float32)]:
+        g_r = randn(n, k, dtype=dt)
+        b_r = randn(k, r, d, dtype=dt)
+        compare(f"mds_encode {(n, k, r, d, dt)}", ops.mds_encode(g_r, b_r),
+                ref.mds_encode_ref(g_r, b_r), tol[dt])
+
+    # mds_decode: one round's (C, k, k) × (C, k, rpc)
+    w = randn(CHUNKS, K, K)
+    y = randn(CHUNKS, K, rpc)
+    record("mds_decode",
+           lambda: ops.mds_decode(w, y),
+           lambda: ref.mds_decode_ref(w, y),
+           lambda: torch.bmm(w, y),
+           n_bytes=4 * (CHUNKS * K * K + 2 * CHUNKS * K * rpc),
+           flops=2 * CHUNKS * K * K * rpc, tol=tol[torch.float32])
+    for c, k, m, r in [(4, 3, 5, 128), (6, 7, 10, 200), (1, 2, 2, 512), (3, 32, 32, 1000)]:
+        w_r, y_r = randn(c, k, m), randn(c, m, r)
+        compare(f"mds_decode {(c, k, m, r)}", ops.mds_decode(w_r, y_r),
+                ref.mds_decode_ref(w_r, y_r), tol[torch.float32])
+
+    # lstm_cell: one predictor step over the n workers, with the trained params
+    params = load_params(device=dev)
+    hid = params.w_hh.shape[1]
+    xs, hs, cs = randn(N, 1), randn(N, hid), randn(N, hid)
+    wts = (params.w_ih.detach(), params.w_hh.detach(), params.b.detach())
+    cell = torch.nn.LSTMCell(1, hid, device=dev)
+    with torch.no_grad():
+        cell.weight_ih.copy_(wts[0])
+        cell.weight_hh.copy_(wts[1])
+        cell.bias_ih.copy_(wts[2])
+        cell.bias_hh.zero_()
+    with torch.no_grad():
+        record("lstm_cell",
+               lambda: ops.lstm_cell(xs, hs, cs, *wts),
+               lambda: ref.lstm_cell_ref(xs, hs, cs, *wts),
+               lambda: cell(xs, (hs, cs)),
+               n_bytes=4 * (N + 4 * N * hid + 4 * hid + 4 * hid * hid + 4 * hid),
+               flops=2 * N * 4 * hid * (1 + hid), tol=1e-5)
+        compare("lstm_cell vs torch.nn.LSTMCell", ops.lstm_cell(xs, hs, cs, *wts),
+                cell(xs, (hs, cs)), 1e-5)
+    for b_, i_, h_ in [(100, 3, 8), (7, 2, 16)]:
+        args = (randn(b_, i_), randn(b_, h_), randn(b_, h_), randn(4 * h_, i_),
+                randn(4 * h_, h_), randn(4 * h_))
+        compare(f"lstm_cell {(b_, i_, h_)}", ops.lstm_cell(*args), ref.lstm_cell_ref(*args),
+                1e-5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 3. the main path at full size --------------------------------------
+    a_full = torch.randn(ROWS, COLS, generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    code = MDSCode(N, K)
+    cm = CodedMatvec(code, CHUNKS)
+    predictor = SpeedPredictor(N, load_params())
+    traces = controlled_traces(N, ITERS, n_stragglers=2, seed=7)
+    x_gen = torch.Generator(device=dev).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coded = cm.shard(a_full)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    a64 = a_full.double()
+    iter_s, worst = [], 0.0
+    phase_s = {"predict": [], "plan": [], "apply": []}
+    for it in range(ITERS):
+        x_it = torch.randn(COLS, generator=x_gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        speeds = predictor.predict()            # returns on the host: synchronised
+        t1 = time.perf_counter()
+        alloc = general_allocation(speeds, K, CHUNKS)
+        tables = cm.plan_tables(alloc)
+        t2 = time.perf_counter()
+        y_it = cm.apply(coded, x_it, *tables)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        iter_s.append(t3 - t0)
+        for name, dt in zip(phase_s, (t1 - t0, t2 - t1, t3 - t2)):
+            phase_s[name].append(dt)
+        if y_it.shape != (ROWS,) or not torch.isfinite(y_it).all():
+            raise RuntimeError(f"iteration {it}: y has shape {tuple(y_it.shape)} "
+                               "or non-finite values")
+        want = a64 @ x_it.double()
+        err = float((y_it.double() - want).abs().max() / want.abs().max())
+        if err > REL_ERR_LIMIT:
+            raise RuntimeError(f"iteration {it}: relative error {err:.3e} > {REL_ERR_LIMIT}")
+        worst = max(worst, err)
+        predictor.observe(traces[it])
+    # encode again into the freed tensor's cached memory: the first encode
+    # also pays for allocating the 5.9 GB of coded partitions
+    del coded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm.shard(a_full)
+    torch.cuda.synchronize()
+    encode_again_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    print(f"main path: encode {encode_s * 1e3:.3f} ms (again, memory cached: "
+          f"{encode_again_s * 1e3:.3f} ms); {ITERS} iterations, median "
+          f"{statistics.median(iter_s) * 1e3:.3f} ms (min {min(iter_s) * 1e3:.3f}, max "
+          f"{max(iter_s) * 1e3:.3f}); worst relative error {worst:.3e}; peak memory "
+          f"{peak_gb:.1f} GB", flush=True)
+    print("median per phase: " + ", ".join(
+        f"{name} {statistics.median(v) * 1e3:.3f} ms" for name, v in phase_s.items()),
+        flush=True)
+    print(f"last allocation: counts {alloc.count.tolist()} from predicted speeds "
+          f"{np.round(speeds, 3).tolist()}", flush=True)
+    print(f"launches on the main path: {counts}", flush=True)
+    need = {"mds_encode": 1, "coded_matvec": ITERS, "mds_decode": ITERS, "lstm_cell": ITERS}
+    short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
+    if short:
+        raise RuntimeError(f"the main path did not run through every kernel: {short}")
+    for name, rec in records.items():
+        rec["launches"] = counts[name]
+
+    print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,72 @@
+"""Carry the JAX predictor's parameters into the port.
+
+The JAX package keeps the LSTM predictor's parameters as a dict of arrays
+(``w_ih (4H, I)``, ``w_hh (4H, H)``, ``b (4H,)``, ``w_out (O, H)``,
+``b_out (O,)``; H = 4, I = O = 1 for the paper's model).  ``jax.random``
+initialisation cannot be reproduced in PyTorch, so parameters cross over
+as numbers: :func:`params_from_jax` takes such a dict of numpy arrays and
+returns the port's :class:`~repro_torch.core.predictor.LSTMPredictor`.
+
+``data/lstm_predictor.json`` holds the trained parameters the main path
+uses.  They were produced, from the root of the checkout, with the JAX
+package's own training call of ``benchmarks/fig_predictor.py``::
+
+    PYTHONPATH=src python -c "import json, numpy as np; \\
+    from repro.core.predictor import train_predictor; \\
+    from repro.core.traces import TraceConfig, sample_traces; \\
+    p, _ = train_predictor(sample_traces(TraceConfig(n_nodes=20, n_iters=400, \\
+        noise_sigma=0.08, p_become_straggler=0.03, p_recover=0.25, \\
+        drift_sigma=0.05), seed=7), epochs=300); \\
+    json.dump({k: np.asarray(v).tolist() for k, v in p.items()}, \\
+        open('src/repro_torch/data/lstm_predictor.json', 'w'), indent=1)"
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.predictor import LSTMParams, LSTMPredictor
+
+__all__ = ["DEFAULT_PARAMS", "params_from_jax", "load_params", "load_params_numpy"]
+
+DEFAULT_PARAMS = Path(__file__).resolve().parent / "data" / "lstm_predictor.json"
+_NAMES = ("w_ih", "w_hh", "b", "w_out", "b_out")
+
+
+def params_from_jax(params: Mapping[str, np.ndarray],
+                    device: str | torch.device = "cuda") -> LSTMPredictor:
+    """JAX predictor params (a dict of arrays) -> the port's module."""
+    missing = [n for n in _NAMES if n not in params]
+    if missing:
+        raise KeyError(f"predictor params lack {missing}")
+    w_hh = np.asarray(params["w_hh"], np.float32)
+    w_ih = np.asarray(params["w_ih"], np.float32)
+    w_out = np.asarray(params["w_out"], np.float32)
+    cfg = LSTMParams(hidden=w_hh.shape[1], input_dim=w_ih.shape[1],
+                     output_dim=w_out.shape[0])
+    model = LSTMPredictor(cfg, device=device)
+    with torch.no_grad():
+        for name in _NAMES:
+            dst = getattr(model, name)
+            src = np.asarray(params[name], np.float32)
+            if src.shape != tuple(dst.shape):
+                raise ValueError(f"{name} has shape {src.shape}, expected {tuple(dst.shape)}")
+            dst.copy_(torch.tensor(src))
+    return model
+
+
+def load_params_numpy(path: str | Path = DEFAULT_PARAMS) -> dict[str, np.ndarray]:
+    """The committed (or given) JSON params as a dict of float32 arrays."""
+    raw = json.loads(Path(path).read_text())
+    return {name: np.asarray(raw[name], np.float32) for name in _NAMES}
+
+
+def load_params(path: str | Path = DEFAULT_PARAMS,
+                device: str | torch.device = "cuda") -> LSTMPredictor:
+    """The committed (or given) JSON params as the port's module."""
+    return params_from_jax(load_params_numpy(path), device=device)

@@ -1,0 +1,151 @@
+"""Coded matrix–vector multiplication under S²C² on one CUDA device.
+
+The n workers' coded partitions are the leading dimension of one
+``(n, rows, d)`` tensor on the card (encode once — the paper's
+zero-data-movement property), and every iteration applies a fresh S²C²
+allocation:
+
+  1. host: predicted speeds → ``general_allocation`` → (begin, count), and
+     per-chunk decode weights from the sorted responders
+     (``MDSCode.chunk_decode_weights_compact``, solved in float64, applied
+     in float32);
+  2. device: one ``coded_matvec`` launch over the ``(n·rows, d)`` view
+     computes exactly the k·C assigned chunks — worker w's chunk
+     ``(begin_w + j) mod C`` is global block ``w·C + (begin_w + j) mod C`` —
+     so unassigned chunks are never read;
+  3. device: the partials are gathered per chunk in responder order,
+     ``(C, k, rpc)``, and one ``mds_decode`` launch recovers the data-block
+     products, which are laid back out in the original row order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.coding import MDSCode
+from repro_torch.core.s2c2 import Allocation
+from repro_torch.kernels import ops
+
+__all__ = ["CodedMatvec", "masked_partial_products", "oracle_matvec"]
+
+
+def _chunk_mask(begin, count, chunks: int) -> torch.Tensor:
+    idx = torch.arange(chunks)
+    rel = (idx - int(begin)) % chunks
+    return rel < int(count)
+
+
+def masked_partial_products(coded: torch.Tensor, x: torch.Tensor, begin, count,
+                            chunks: int) -> torch.Tensor:
+    """Plain per-worker partial product with chunk masking (the reference).
+
+    coded: (rows, d) this worker's partition; rows % chunks == 0.
+    Returns (chunks, rows_per_chunk): y[c] = coded_chunk_c @ x if assigned
+    else 0.  ``CodedMatvec.apply`` computes the assigned chunks only.
+    """
+    rows, d = coded.shape
+    rpc = rows // chunks
+    mask = _chunk_mask(begin, count, chunks).to(coded.device)
+    y = (coded.reshape(chunks, rpc, d) @ x).reshape(chunks, rpc)
+    return y * mask[:, None].to(y.dtype)
+
+
+@dataclasses.dataclass
+class CodedMatvec:
+    """(n, k)-MDS coded matvec with per-iteration S²C² planning, on one device.
+
+    Usage::
+
+        cm = CodedMatvec(code, chunks=C)           # device="cuda" by default
+        coded = cm.shard(A)                        # encode once
+        tables = cm.plan_tables(alloc)             # every iteration, host
+        y = cm.apply(coded, x, *tables)            # every iteration, device
+    """
+
+    code: MDSCode
+    chunks: int
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    # -- data placement -----------------------------------------------------
+    def shard(self, a: torch.Tensor) -> torch.Tensor:
+        """Encode: (D, d) -> (n, rows, d) on the device, rows % chunks == 0."""
+        coded = self.code.encode(a.to(self.device))
+        pad = (-coded.shape[1]) % self.chunks
+        if pad:
+            coded = torch.cat([coded, coded.new_zeros(
+                (coded.shape[0], pad, coded.shape[2]))], dim=1)
+        return coded
+
+    # -- planning (host) ----------------------------------------------------
+    def plan_tables(self, alloc: Allocation):
+        """Allocation → (begin, count, weights, responders).
+
+        begin, count: (n,) int64 on the host; responders: (chunks, k) int64
+        on the host, each row the chunk's k responders in ascending order;
+        weights: (chunks, k, k) float32 on the device, the decode matrix
+        of each chunk's responders, solved in float64.
+        """
+        if alloc.n != self.code.n or alloc.k != self.code.k or alloc.chunks != self.chunks:
+            raise ValueError(f"allocation (n={alloc.n}, k={alloc.k}, C={alloc.chunks}) does "
+                             f"not match the code (n={self.code.n}, k={self.code.k}, "
+                             f"C={self.chunks})")
+        dms, ids = self.code.chunk_decode_weights_compact(alloc.masks().T)
+        weights = torch.as_tensor(dms, dtype=torch.float32).to(self.device)
+        return (torch.as_tensor(alloc.begin, dtype=torch.int64),
+                torch.as_tensor(alloc.count, dtype=torch.int64),
+                weights, torch.as_tensor(ids, dtype=torch.int64))
+
+    def _index_tables(self, begin: np.ndarray, count: np.ndarray,
+                      responders: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Global block ids of the assigned chunks, worker-major, and for each
+        (chunk, responder) the position of its partial among them."""
+        C = self.chunks
+        n = begin.shape[0]
+        if (count < 0).any() or (count > C).any():
+            raise ValueError("per-worker count out of range [0, C]")
+        block_ids = np.concatenate(
+            [w * C + (begin[w] + np.arange(count[w])) % C for w in range(n)])
+        offset = np.cumsum(count) - count                  # first slot of worker w
+        chunk = np.arange(C)[:, None]
+        rel = (chunk - begin[responders]) % C              # (C, k)
+        if (rel >= count[responders]).any():
+            c = int(np.argwhere(rel >= count[responders])[0, 0])
+            raise ValueError(f"a responder of chunk {c} was not assigned that chunk")
+        return block_ids, offset[responders] + rel
+
+    # -- apply (device) -------------------------------------------------------
+    def apply(self, coded: torch.Tensor, x: torch.Tensor, begin, count,
+              weights: torch.Tensor, responders) -> torch.Tensor:
+        """Compute A @ x from the coded partitions under an S²C² allocation.
+
+        coded: (n, rows, d) from :meth:`shard`; x: (d,); the other arguments
+        are :meth:`plan_tables`' output.  Returns y: (k·rows,), the
+        original (padded) product, in x's dtype.
+        """
+        n, rows, d = coded.shape
+        if x.shape != (d,):
+            raise ValueError(f"x must have shape ({d},), got {tuple(x.shape)}")
+        C, k = self.chunks, self.code.k
+        rpc = rows // C
+        block_ids, gather = self._index_tables(
+            np.asarray(begin, dtype=np.int64), np.asarray(count, dtype=np.int64),
+            np.asarray(responders, dtype=np.int64))
+        ids_t = torch.as_tensor(block_ids, dtype=torch.int32).to(coded.device)
+        gather_t = torch.as_tensor(gather, dtype=torch.int64).to(coded.device)
+        parts = ops.coded_matvec(coded.view(n * rows, d), x, ids_t, rpc)  # (Σcount, rpc)
+        y = parts[gather_t].float()                                      # (C, k, rpc)
+        dec = ops.mds_decode(weights, y)                                 # (C, k, rpc)
+        # data block i, chunk c, row r  <-  position i·rows + c·rpc + r
+        return dec.transpose(0, 1).reshape(k * rows).to(x.dtype)
+
+
+def oracle_matvec(a: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Float64 product on the host, the exact reference of the tests."""
+    return np.asarray(a, np.float64) @ np.asarray(x, np.float64)

@@ -1,0 +1,136 @@
+"""The port's MDS algebra against the JAX package's.
+
+The generators and every decode table are numpy float64 on both sides, so
+they must be bit-equal.  Encoding is float32 on both sides with sums taken
+in another order, held at the JAX kernel tests' float32 tolerance (2e-4).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import coding as jcoding
+from repro_torch.core import coding
+
+torch.set_num_threads(1)   # small shapes; leave the cores to the timing-sensitive cluster tests
+
+KINDS = ["systematic_cauchy", "vandermonde", "chebyshev_vandermonde"]
+SHAPES = [(6, 4), (12, 10), (5, 5)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,k", SHAPES)
+def test_generator_bit_equal(kind, n, k):
+    got = coding.make_generator(n, k, kind)
+    want = jcoding.make_generator(n, k, kind)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    assert coding._check_mds(got) == jcoding._check_mds(want)
+
+
+def test_cauchy_parity_and_bad_arguments_match():
+    np.testing.assert_array_equal(coding._cauchy_parity(12, 10), jcoding._cauchy_parity(12, 10))
+    for n, k, kind in [(3, 4, "systematic_cauchy"), (4, 2, "bogus")]:
+        with pytest.raises(ValueError):
+            coding.make_generator(n, k, kind)
+        with pytest.raises(ValueError):
+            jcoding.make_generator(n, k, kind)
+
+
+@pytest.mark.parametrize("n,k,rows,d", [(6, 4, 1200, 64), (12, 10, 203, 17)])
+def test_encode_matches_jax(n, k, rows, d):
+    import jax.numpy as jnp
+    a = np.random.default_rng(rows).standard_normal((rows, d)).astype(np.float32)
+    got = coding.MDSCode(n, k).encode(torch.from_numpy(a))
+    want = np.asarray(jcoding.MDSCode(n, k).encode(jnp.asarray(a)))
+    assert got.shape == want.shape == (n, -(-rows // k), d)   # rows padded to k
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_decode_matrix_bit_equal():
+    code, jcode = coding.MDSCode(12, 10), jcoding.MDSCode(12, 10)
+    workers = [11, 0, 3, 2, 5, 4, 7, 6, 9, 10]
+    np.testing.assert_array_equal(code.decode_matrix(workers), jcode.decode_matrix(workers))
+
+
+def _random_coverage(rng, n, k, chunks):
+    """(chunks, n) coverage with at least k workers on every chunk."""
+    cov = rng.random((chunks, n)) < 0.7
+    for c in range(chunks):
+        if cov[c].sum() < k:
+            cov[c, rng.choice(n, size=k, replace=False)] = True
+    return cov
+
+
+@pytest.mark.parametrize("n,k,chunks", [(6, 4, 12), (12, 10, 20)])
+def test_decode_tables_bit_equal(n, k, chunks):
+    rng = np.random.default_rng(n)
+    code, jcode = coding.MDSCode(n, k), jcoding.MDSCode(n, k)
+    for _ in range(3):
+        cov = _random_coverage(rng, n, k, chunks)
+        dms, ids = code.chunk_decode_weights_compact(cov)
+        jdms, jids = jcode.chunk_decode_weights_compact(cov)
+        np.testing.assert_array_equal(ids, jids)
+        assert (np.diff(ids, axis=1) > 0).all()          # sorted responders
+        np.testing.assert_array_equal(dms, jdms)
+        np.testing.assert_array_equal(code.decode_submats(ids, use_cache=False),
+                                      jcode.decode_submats(jids, use_cache=False))
+        np.testing.assert_array_equal(code.chunk_decode_weights(cov),
+                                      jcode.chunk_decode_weights(cov))
+
+
+def test_decode_weights_recover_the_blocks():
+    """W[c] @ partials[:, c] gives back the data blocks, in float64."""
+    code = coding.MDSCode(6, 4)
+    rng = np.random.default_rng(0)
+    blocks = rng.standard_normal((4, 5, 3))
+    coded = np.tensordot(code.generator, blocks, axes=([1], [0]))   # (6, 5, 3)
+    cov = _random_coverage(rng, 6, 4, 5)
+    w = code.chunk_decode_weights(cov)
+    partials = np.where(cov.T[:, :, None], coded, 0.0)              # unused zeroed
+    got = np.einsum("ckn,ncr->kcr", w, partials)
+    np.testing.assert_allclose(got, blocks, rtol=1e-12, atol=1e-12)
+
+
+def test_undecodable_coverage_raises_like_jax():
+    cov = np.ones((4, 6), bool)
+    cov[2, :3] = False
+    for c in (coding.MDSCode(6, 4), jcoding.MDSCode(6, 4)):
+        with pytest.raises(ValueError, match="decodability violated"):
+            c.chunk_decode_weights(cov)
+
+
+def test_cache_statistics_match_jax():
+    rng = np.random.default_rng(5)
+    code, jcode = coding.MDSCode(12, 10), jcoding.MDSCode(12, 10)
+    covs = [_random_coverage(rng, 12, 10, 20) for _ in range(3)]
+    for cov in covs + covs[:2]:
+        code.chunk_decode_weights(cov)
+        jcode.chunk_decode_weights(cov)
+        code.chunk_decode_weights_compact(cov)
+        jcode.chunk_decode_weights_compact(cov)
+        assert code.decode_cache_info() == jcode.decode_cache_info()
+    info = code.decode_cache_info()
+    assert info["patterns"] == 3 and info["hits"] > 0 and info["misses"] > 0
+    w = code.chunk_decode_weights(covs[0])
+    assert not w.flags.writeable                       # shared with the cache
+    code.decode_cache_clear()
+    assert code.decode_cache_info() == {"hits": 0, "misses": 0, "submats": 0, "patterns": 0}
+
+
+def test_lru_caps_evict_oldest():
+    code = coding.MDSCode(6, 4)
+    object.__setattr__(code, "_PATTERN_CACHE_CAP", 2)
+    rng = np.random.default_rng(9)
+    for _ in range(4):
+        code.chunk_decode_weights(_random_coverage(rng, 6, 4, 8))
+    assert code.decode_cache_info()["patterns"] == 2
+
+
+def test_pad_and_split_rows():
+    a = torch.arange(14.0).reshape(7, 2)
+    p = coding.pad_rows(a, 4)
+    assert p.shape == (8, 2) and torch.equal(p[:7], a) and torch.all(p[7] == 0)
+    assert coding.split_rows(p, 4).shape == (4, 2, 2)
+    with pytest.raises(ValueError, match="not divisible"):
+        coding.split_rows(a, 4)

@@ -1,0 +1,237 @@
+"""The port's four kernels.
+
+On the CPU: each plain version (what ``repro_torch.kernels.ops`` runs for a
+CPU tensor) is held against the JAX package's ``ref`` oracle and its Pallas
+kernel in interpret mode, on the same numpy inputs, at the shapes of
+``tests/test_kernels.py``.  On a card (``cuda`` marker): each CUDA kernel
+is held against its plain version on the same tensors.
+
+Tolerances are the JAX kernel tests' own (``tests/test_kernels.py:23-24,
+126-129``): float32 2e-4, since the sums run in another order; bfloat16
+5e-2, since inputs and outputs round to 8 bits of mantissa; the LSTM cell
+1e-5, since it sums at most a few terms.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_cuda import cuda  # noqa: F401  (fixture)
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)   # small shapes; leave the cores to the timing-sensitive cluster tests
+
+TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+LSTM_TOL = dict(rtol=1e-5, atol=1e-5)
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+MATVEC_SHAPES = [(8, 8, 128, 1), (12, 16, 300, 3), (6, 32, 512, 8), (5, 8, 130, 2)]
+ENCODE_SHAPES = [(5, 3, 64, 128), (12, 10, 100, 260), (4, 4, 16, 640)]
+DECODE_SHAPES = [(4, 3, 5, 128), (6, 7, 10, 200), (1, 2, 2, 512)]
+LSTM_SHAPES = [(1, 1, 4), (12, 1, 4), (100, 3, 8), (7, 2, 16)]
+
+
+@pytest.fixture(scope="module")
+def jax_kernels():
+    """The JAX package's kernel ops and oracles (absent where JAX is)."""
+    pytest.importorskip("jax")
+    from repro.kernels import ops as jops, ref as jref
+    return jops, jref
+
+
+def _rand(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _both(arr, dtype):
+    """One numpy array as a torch tensor and a jax array of the same dtype
+    (bfloat16 rounds the same way, to nearest even, on both sides)."""
+    import jax.numpy as jnp
+    t = torch.from_numpy(arr).to(TORCH_DTYPE[dtype])
+    return t, jnp.asarray(t.float().numpy(), getattr(jnp, dtype))
+
+
+def _np(t):
+    return np.asarray(t, dtype=np.float32) if not isinstance(t, torch.Tensor) \
+        else t.float().numpy()
+
+
+class TestCodedMatvec:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("chunks,br,d,nvec", MATVEC_SHAPES)
+    def test_plain_matches_jax(self, jax_kernels, dtype, chunks, br, d, nvec):
+        import jax.numpy as jnp
+        jops, jref = jax_kernels
+        rng = np.random.default_rng(chunks * 1000 + d)
+        a, ja = _both(_rand(rng, (chunks * br, d)), dtype)
+        x, jx = _both(_rand(rng, (d, nvec)), dtype)
+        ids_np = rng.choice(chunks, size=max(2, chunks // 2), replace=False).astype(np.int32)
+        ids, jids = torch.from_numpy(ids_np), jnp.asarray(ids_np)
+        got = ops.coded_matvec(a, x, ids, br)
+        assert got.shape == (ids_np.size, br, nvec) and got.dtype == a.dtype
+        np.testing.assert_allclose(_np(got), _np(jref.coded_matvec_ref(ja, jx, jids, br)),
+                                   **TOL[dtype])
+        np.testing.assert_allclose(_np(got), _np(jops.coded_matvec(ja, jx, jids, br)),
+                                   **TOL[dtype])
+
+    def test_vector_input(self, jax_kernels):
+        import jax.numpy as jnp
+        jops, _ = jax_kernels
+        rng = np.random.default_rng(1)
+        a_np, x_np = _rand(rng, (64, 96)), _rand(rng, (96,))
+        ids_np = np.array([3, 0, 7], np.int32)
+        got = ops.coded_matvec(torch.from_numpy(a_np), torch.from_numpy(x_np),
+                               torch.from_numpy(ids_np), 8)
+        want = jops.coded_matvec(jnp.asarray(a_np), jnp.asarray(x_np), jnp.asarray(ids_np), 8)
+        assert got.shape == (3, 8)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+    def test_work_scales_with_assignment(self):
+        """Compacted output shape == number of assigned blocks (the S²C² property)."""
+        a = torch.randn(64, 128)
+        x = torch.randn(128, 1)
+        for nb in (0, 1, 3, 8):
+            out = ops.coded_matvec(a, x, torch.arange(nb, dtype=torch.int32), 8)
+            assert out.shape == (nb, 8, 1)
+
+
+class TestMDSEncode:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n,k,rows,d", ENCODE_SHAPES)
+    def test_plain_matches_jax(self, jax_kernels, dtype, n, k, rows, d):
+        jops, jref = jax_kernels
+        rng = np.random.default_rng(n * 100 + rows)
+        g, jg = _both(_rand(rng, (n, k)), dtype)
+        blocks, jblocks = _both(_rand(rng, (k, rows, d)), dtype)
+        got = ops.mds_encode(g, blocks)
+        assert got.shape == (n, rows, d) and got.dtype == blocks.dtype
+        np.testing.assert_allclose(_np(got), _np(jref.mds_encode_ref(jg, jblocks)),
+                                   **TOL[dtype])
+        np.testing.assert_allclose(_np(got), _np(jops.mds_encode(jg, jblocks)), **TOL[dtype])
+
+
+class TestMDSDecode:
+    @pytest.mark.parametrize("chunks,k,m,r", DECODE_SHAPES)
+    def test_plain_matches_jax(self, jax_kernels, chunks, k, m, r):
+        import jax.numpy as jnp
+        jops, jref = jax_kernels
+        rng = np.random.default_rng(chunks * 10 + r)
+        w_np, y_np = _rand(rng, (chunks, k, m)), _rand(rng, (chunks, m, r))
+        got = ops.mds_decode(torch.from_numpy(w_np), torch.from_numpy(y_np))
+        jw, jy = jnp.asarray(w_np), jnp.asarray(y_np)
+        np.testing.assert_allclose(_np(got), _np(jref.mds_decode_ref(jw, jy)), **TOL["float32"])
+        np.testing.assert_allclose(_np(got), _np(jops.mds_decode(jw, jy)), **TOL["float32"])
+
+    def test_decode_inverts_encode(self):
+        """Plain decode inverts plain encode through a real MDS code."""
+        from repro_torch.core.coding import MDSCode
+        code = MDSCode(n=6, k=4)
+        blocks = torch.randn(4, 32, 64, generator=torch.Generator().manual_seed(0))
+        coded = ops.mds_encode(torch.as_tensor(code.generator, dtype=torch.float32), blocks)
+        workers = [5, 1, 2, 4]
+        dm = torch.as_tensor(code.decode_matrix(workers), dtype=torch.float32)
+        got = ops.mds_decode(dm[None], coded[workers].reshape(1, 4, -1)).reshape(4, 32, 64)
+        np.testing.assert_allclose(got.numpy(), blocks.numpy(), rtol=1e-3, atol=1e-3)
+
+
+class TestLSTMCell:
+    @pytest.mark.parametrize("b,i,h", LSTM_SHAPES)
+    def test_plain_matches_jax(self, jax_kernels, b, i, h):
+        import jax.numpy as jnp
+        jops, jref = jax_kernels
+        rng = np.random.default_rng(b * 10 + h)
+        arrs = [_rand(rng, s) for s in [(b, i), (b, h), (b, h), (4 * h, i), (4 * h, h),
+                                        (4 * h,)]]
+        gh, gc = ops.lstm_cell(*(torch.from_numpy(a) for a in arrs))
+        for want in (jref.lstm_cell_ref(*(jnp.asarray(a) for a in arrs)),
+                     jops.lstm_cell(*(jnp.asarray(a) for a in arrs))):
+            np.testing.assert_allclose(gh.numpy(), _np(want[0]), **LSTM_TOL)
+            np.testing.assert_allclose(gc.numpy(), _np(want[1]), **LSTM_TOL)
+
+
+class TestDispatch:
+    def test_ref_names_are_the_plain_versions(self):
+        from repro_torch.kernels import coded_matvec, lstm_cell, mds_decode, mds_encode
+        assert ref.coded_matvec_ref is coded_matvec.coded_matvec_plain
+        assert ref.mds_encode_ref is mds_encode.mds_encode_plain
+        assert ref.mds_decode_ref is mds_decode.mds_decode_plain
+        assert ref.lstm_cell_ref is lstm_cell.lstm_cell_plain
+
+    def test_other_devices_raise(self):
+        w = torch.empty(2, 3, 3, device="meta")
+        with pytest.raises(ValueError, match="no version for device"):
+            ops.mds_decode(w, torch.empty(2, 3, 8, device="meta"))
+        with pytest.raises(ValueError, match="several devices"):
+            ops.mds_decode(torch.zeros(2, 3, 3), torch.empty(2, 3, 8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _cuda_rand(gen, shape, dtype=torch.float32):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunks,br,d,nvec", MATVEC_SHAPES + [(6, 100, 2048, 1),
+                                                             (4, 64, 1024, 16)])
+def test_cuda_coded_matvec(cuda, dtype, chunks, br, d, nvec):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = _cuda_rand(gen, (chunks * br, d), TORCH_DTYPE[dtype])
+    x = _cuda_rand(gen, (d, nvec), TORCH_DTYPE[dtype])
+    ids = torch.randperm(chunks, generator=gen, device=cuda)[: max(2, chunks // 2)]
+    ids = ids.to(torch.int32)
+    got = ops.coded_matvec(a, x, ids, br)
+    want = ref.coded_matvec_ref(a, x, ids, br)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_coded_matvec_bad_id_gives_nan(cuda):
+    a = torch.ones(32, 64, device=cuda)
+    x = torch.ones(64, device=cuda)
+    out = ops.coded_matvec(a, x, torch.tensor([1, 9], dtype=torch.int32, device=cuda), 8)
+    assert torch.all(out[0] == 64) and torch.isnan(out[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,k,rows,d", ENCODE_SHAPES + [(5, 3, 63, 130), (40, 32, 10, 8)])
+def test_cuda_mds_encode(cuda, dtype, n, k, rows, d):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    g = _cuda_rand(gen, (n, k), TORCH_DTYPE[dtype])
+    blocks = _cuda_rand(gen, (k, rows, d), TORCH_DTYPE[dtype])
+    got, want = ops.mds_encode(g, blocks), ref.mds_encode_ref(g, blocks)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks,k,m,r", DECODE_SHAPES + [(3, 32, 32, 1000)])
+def test_cuda_mds_decode(cuda, chunks, k, m, r):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    w, y = _cuda_rand(gen, (chunks, k, m)), _cuda_rand(gen, (chunks, m, r))
+    got, want = ops.mds_decode(w, y), ref.mds_decode_ref(w, y)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,h", LSTM_SHAPES)
+def test_cuda_lstm_cell(cuda, b, i, h):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    args = [_cuda_rand(gen, s) for s in [(b, i), (b, h), (b, h), (4 * h, i), (4 * h, h),
+                                         (4 * h,)]]
+    (gh, gc), (wh, wc) = ops.lstm_cell(*args), ref.lstm_cell_ref(*args)
+    np.testing.assert_allclose(gh.cpu().numpy(), wh.cpu().numpy(), **LSTM_TOL)
+    np.testing.assert_allclose(gc.cpu().numpy(), wc.cpu().numpy(), **LSTM_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_launches_are_counted(cuda):
+    ops.reset_launch_counts()
+    a, x = torch.randn(16, 32, device=cuda), torch.randn(32, device=cuda)
+    ops.coded_matvec(a, x, torch.tensor([0, 1], dtype=torch.int32, device=cuda), 8)
+    assert ops.launch_counts()["coded_matvec"] == 1
+    ops.reset_launch_counts()

@@ -1,0 +1,132 @@
+"""The port's LSTM predictor against the JAX package's.
+
+Parameters cross over as numbers through ``repro_torch.convert``: both the
+JAX package's ``init_lstm(PRNGKey(0))`` and the committed trained params
+(``src/repro_torch/data/lstm_predictor.json``).  Tolerance 1e-5, the JAX
+LSTM kernel test's (``tests/test_kernels.py:126-129``): a cell sums a few
+float32 terms, in another order on each side.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import predictor as jpred
+from repro_torch import convert
+from repro_torch.core import predictor
+from repro_torch.core.s2c2 import general_allocation
+from repro_torch.core.traces import controlled_traces, sample_traces, TraceConfig
+
+torch.set_num_threads(1)   # small shapes; leave the cores to the timing-sensitive cluster tests
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(params=["init_lstm", "committed"])
+def params_np(request):
+    if request.param == "init_lstm":
+        p = jpred.init_lstm(jpred.LSTMParams(), jax.random.PRNGKey(0))
+        return {k: np.asarray(v) for k, v in p.items()}
+    return convert.load_params_numpy()
+
+
+def _port(params_np):
+    return convert.params_from_jax(params_np, device="cpu")
+
+
+def _jax(params_np):
+    return {k: jnp.asarray(v) for k, v in params_np.items()}
+
+
+def test_convert_copies_every_parameter(params_np):
+    model = _port(params_np)
+    assert model.cfg == predictor.LSTMParams(hidden=4, input_dim=1, output_dim=1)
+    for name, value in params_np.items():
+        np.testing.assert_array_equal(getattr(model, name).detach().numpy(), value)
+
+
+def test_lstm_cell(params_np):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((6, 1)).astype(np.float32)
+    h, c = (rng.standard_normal((6, 4)).astype(np.float32) for _ in range(2))
+    gh, gc = predictor.lstm_cell(_port(params_np), torch.from_numpy(x),
+                                 (torch.from_numpy(h), torch.from_numpy(c)))
+    wh, wc = jpred.lstm_cell(_jax(params_np), jnp.asarray(x), (jnp.asarray(h), jnp.asarray(c)))
+    np.testing.assert_allclose(gh.detach().numpy(), np.asarray(wh), **TOL)
+    np.testing.assert_allclose(gc.detach().numpy(), np.asarray(wc), **TOL)
+
+
+def test_lstm_apply(params_np):
+    xs = np.random.default_rng(1).uniform(0.1, 1.0, (10, 5, 1)).astype(np.float32)
+    got = predictor.lstm_apply(_port(params_np), torch.from_numpy(xs))
+    want = jpred.lstm_apply(_jax(params_np), jnp.asarray(xs))
+    assert got.shape == (10, 5, 1)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+def test_predict_next(params_np):
+    hist = controlled_traces(12, 32, n_stragglers=2, seed=7).astype(np.float32)
+    got = predictor.predict_next(_port(params_np), torch.from_numpy(hist))
+    want = jpred.predict_next(_jax(params_np), jnp.asarray(hist))
+    assert got.shape == (12,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_speed_predictor_sequence(params_np):
+    """The online wrapper agrees step by step, past the 32-step window."""
+    traces = sample_traces(TraceConfig(n_nodes=8, n_iters=40), seed=3)
+    port = predictor.SpeedPredictor(8, _port(params_np), window=32, device="cpu")
+    ref = jpred.SpeedPredictor(8, _jax(params_np), window=32)
+    for it in range(40):
+        np.testing.assert_allclose(port.predict(), ref.predict(), **TOL)
+        port.observe(traces[it])
+        ref.observe(traces[it])
+    port.reset_worker(3)
+    ref.reset_worker(3)
+    np.testing.assert_allclose(port.predict(), ref.predict(), **TOL)
+
+
+def test_speed_predictor_without_params_matches():
+    port = predictor.SpeedPredictor(4, None, device="cpu")
+    ref = jpred.SpeedPredictor(4, None)
+    np.testing.assert_array_equal(port.predict(), ref.predict())
+    port.observe([1.0, 0.5, 0.2, 0.9])
+    ref.observe([1.0, 0.5, 0.2, 0.9])
+    np.testing.assert_array_equal(port.predict(), ref.predict())
+
+
+def test_mape_and_baselines_match():
+    rng = np.random.default_rng(4)
+    pred, true = rng.uniform(0.1, 1, 50), rng.uniform(0.1, 1, 50)
+    np.testing.assert_allclose(
+        float(predictor.mape(torch.from_numpy(pred), torch.from_numpy(true))),
+        float(jpred.mape(jnp.asarray(pred), jnp.asarray(true))), rtol=1e-6)
+    hist = rng.uniform(0.1, 1, (7, 5))
+    np.testing.assert_array_equal(predictor.last_value_baseline(hist),
+                                  jpred.last_value_baseline(hist))
+    np.testing.assert_allclose(predictor.ema_baseline(hist), jpred.ema_baseline(hist),
+                               rtol=1e-12)
+
+
+def test_convert_rejects_bad_params():
+    p = convert.load_params_numpy()
+    with pytest.raises(KeyError, match="b_out"):
+        convert.params_from_jax({k: v for k, v in p.items() if k != "b_out"}, device="cpu")
+    bad = dict(p, b=np.zeros(15, np.float32))
+    with pytest.raises(ValueError, match="shape"):
+        convert.params_from_jax(bad, device="cpu")
+
+
+def test_committed_params_steer_the_allocation():
+    """The main path's setting: every prediction is positive and the two
+    5x-slower stragglers get about half the chunks of the others."""
+    traces = controlled_traces(12, 30, n_stragglers=2, seed=7)
+    sp = predictor.SpeedPredictor(12, convert.load_params(device="cpu"), device="cpu")
+    for it in range(30):
+        speeds = sp.predict()
+        assert (speeds > 0.2).all()
+        sp.observe(traces[it])
+    count = general_allocation(sp.predict(), 10, 20).count
+    assert count[-2:].max() <= 10 and count[:-2].min() >= 16
