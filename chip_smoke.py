@@ -11,15 +11,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. print the card's name and power limit, build the four kernels;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones, and time kernel, plain version and
-   one PyTorch library call with CUDA events (median of 20);
-3. the main path at full size: encode a 600,000 × 2,048 float32 matrix with
+   one PyTorch library call two ways, with CUDA events:
+   - ``device_ms``: many launches back to back, queued behind a sleep kernel
+     so that the host runs ahead, divided by their count: the device's time;
+   - ``call_ms``: the median of 20 single calls, each timed from the host's
+     enqueue: the time a caller that waits for each call sees;
+3. in turns on the card (new, old, old, new), at the main shape:
+   ``coded_matvec``'s stream design against the warp-per-row design, each
+   reached directly, and against ``torch.matmul`` on the same rows gathered
+   beforehand; the fused decode against the composition it replaced (index
+   gather → ``mds_decode`` → transpose copy) and against the same three
+   steps with ``torch.bmm``;
+4. the main path at full size: encode a 600,000 × 2,048 float32 matrix with
    a (12, 10)-MDS code, then 30 iterations of predict (LSTM) → plan
    (Algorithm 1) → coded matvec (assigned chunks only) → decode, each checked
    against a float64 product on the card, then one more encode with the
    allocator's memory warm; the kernels' launch counters are zeroed just
-   before this phase and read just after it.
+   before this phase and read just after it.  It fails unless every
+   ``coded_matvec`` launch took the stream design and ``mds_decode``
+   launched exactly once per iteration.
 
-The last two lines are the per-kernel record as JSON and the device line.
+The last lines are the in-turn times as JSON, the per-kernel record as JSON
+(``ms``, ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the
+per-call times) and the device line.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ REL_ERR_LIMIT = 1e-3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 REPS = 20
+DEVICE_WINDOW_MS = 50.0         # device_ms: about this much work per window
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -80,6 +95,7 @@ def main() -> int:
     from repro_torch.core.s2c2 import general_allocation
     from repro_torch.core.traces import controlled_traces
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import coded_matvec as cmv
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -93,7 +109,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(_build.SOURCES)} sources, one nvcc "
           "each, in parallel; less if build/kernels/ already held the library)", flush=True)
 
-    def time_ms(fn) -> float:
+    def call_ms(fn) -> float:
+        """Median of single calls, each from the host's enqueue to its end."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -107,6 +124,35 @@ def main() -> int:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    # cycles of torch.cuda._sleep per millisecond, to queue work behind it
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    sleep_cycles_per_ms = 10_000_000 / start.elapsed_time(end)
+
+    def device_ms(fn, per_call_ms: float) -> float:
+        """Launches back to back on the device: they are queued behind a
+        sleep long enough for the host to enqueue all of them first."""
+        n = int(min(200, max(5, DEVICE_WINDOW_MS / per_call_ms)))
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(1.5 * n * per_call_ms * sleep_cycles_per_ms) + 1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    def timed(fn) -> dict:
+        c = call_ms(fn)
+        return {"device_ms": device_ms(fn, c), "call_ms": c}
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -130,25 +176,45 @@ def main() -> int:
 
     records = {}
 
-    def record(name, kernel, plain, library, n_bytes, flops, tol):
+    def record(name, kernel, plain, library, n_bytes, flops, tol, library_name):
         err = compare(f"{name} (main shape)", kernel(), plain(), tol)
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
-        library_ms = time_ms(library)
+        k_t, p_t, l_t = timed(kernel), timed(plain), timed(library)
         b_ms, b_by = bound_ms(n_bytes, flops)
         records[name] = dict(name=name, route="cuda",
                              source=f"src/repro_torch/kernels/csrc/{name}.cu",
                              replaces=KERNELS[name], launches=0, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=library_ms)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max abs err "
+                             ms=k_t["device_ms"], plain_ms=p_t["device_ms"],
+                             bound_ms=b_ms, bound_by=b_by, library_ms=l_t["device_ms"],
+                             device_ms=k_t["device_ms"], call_ms=k_t["call_ms"],
+                             plain_device_ms=p_t["device_ms"], plain_call_ms=p_t["call_ms"],
+                             library_device_ms=l_t["device_ms"],
+                             library_call_ms=l_t["call_ms"], library=library_name)
+        print(f"{name}: device ms: kernel {k_t['device_ms']:.4f}, plain "
+              f"{p_t['device_ms']:.4f}, library {l_t['device_ms']:.4f}; call ms: kernel "
+              f"{k_t['call_ms']:.4f}, plain {p_t['call_ms']:.4f}, library "
+              f"{l_t['call_ms']:.4f}; bound {b_ms:.4f} ms ({b_by}), max abs err "
               f"{err:.3e} (tol {tol})", flush=True)
+
+    turns = {}
+
+    def in_turns(label, fns: dict, order: list[str]) -> None:
+        """Time several versions of one function in turns on this card."""
+        times = {name: [] for name in fns}
+        for name in order:
+            times[name].append(timed(fns[name]))
+        turns[label] = {name: {"device_ms": [t["device_ms"] for t in ts],
+                               "call_ms": [t["call_ms"] for t in ts]}
+                        for name, ts in times.items()}
+        for name, ts in turns[label].items():
+            print(f"in turns, {label}: {name}: device ms "
+                  f"{', '.join(f'{v:.4f}' for v in ts['device_ms'])}; call ms "
+                  f"{', '.join(f'{v:.4f}' for v in ts['call_ms'])}", flush=True)
 
     tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
     rows_w = ROWS // K                   # rows of one coded partition
     rpc = rows_w // CHUNKS               # rows of one chunk
 
-    # -- 2. every kernel against its plain version ---------------------------
+    # -- 2 and 3. every kernel against its plain version; in turns ------------
     # coded_matvec: the main path's launch reads k·C assigned chunks out of
     # the n·C chunks of the (n·rows, d) coded tensor
     a = randn(N * rows_w, COLS)
@@ -162,7 +228,22 @@ def main() -> int:
            lambda: ref.coded_matvec_ref(a, x, ids, rpc),
            lambda: torch.matmul(sel, x),
            n_bytes=4 * (nb * rpc * COLS + COLS + nb + nb * rpc),
-           flops=2 * nb * rpc * COLS, tol=tol[torch.float32])
+           flops=2 * nb * rpc * COLS, tol=tol[torch.float32],
+           library_name="torch.matmul on pre-gathered rows")
+    if not cmv.takes_stream(a, x):
+        raise RuntimeError("the main shape does not take coded_matvec's stream design")
+    records["coded_matvec"]["design"] = "stream"
+    # the two designs, each reached directly, and cuBLAS's GEMV on the rows
+    # gathered beforehand, in turns at the main shape
+    compare("coded_matvec stream vs general (main shape)",
+            cmv.coded_matvec_stream(a, x, ids, rpc), cmv.coded_matvec_general(a, x, ids, rpc),
+            tol[torch.float32])
+    versions = {
+        "stream": lambda: cmv.coded_matvec_stream(a, x, ids, rpc),
+        "general (warp per row)": lambda: cmv.coded_matvec_general(a, x, ids, rpc),
+        "torch.matmul on pre-gathered rows": lambda: torch.matmul(sel, x),
+    }
+    in_turns("coded_matvec", versions, list(versions) + list(versions)[::-1])
     del a, sel
     for chunks, br, d, nvec, dt in [(12, 16, 300, 3, torch.float32),
                                     (5, 8, 130, 2, torch.bfloat16),
@@ -175,6 +256,19 @@ def main() -> int:
         compare(f"coded_matvec {(chunks, br, d, nvec, dt)}",
                 ops.coded_matvec(a_r, x_r, ids_r, br),
                 ref.coded_matvec_ref(a_r, x_r, ids_r, br), tol[dt])
+    # the stream design at ragged shapes: nb of 1, under the grid and many
+    # times it; br not a multiple of the tile's rows; d up to 32 KB a row
+    for blocks_r, nb_r, br, d, dt in [(4, 1, 37, 2048, torch.float32),
+                                      (64, 40, 11, 4096, torch.bfloat16),
+                                      (600, 1500, 6, 2048, torch.float32),
+                                      (50, 300, 130, 1024, torch.bfloat16),
+                                      (6, 9, 5, 8192, torch.float32)]:
+        a_r, x_r = randn(blocks_r * br, d, dtype=dt), randn(d, dtype=dt)
+        ids_r = torch.randint(0, blocks_r, (nb_r,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        compare(f"coded_matvec stream {(blocks_r, nb_r, br, d, dt)}",
+                cmv.coded_matvec_stream(a_r, x_r, ids_r, br),
+                ref.coded_matvec_ref(a_r, x_r, ids_r, br), tol[dt])
 
     # mds_encode: the whole matrix, once
     g = torch.as_tensor(MDSCode(N, K).generator, dtype=torch.float32, device=dev)
@@ -185,7 +279,7 @@ def main() -> int:
            lambda: ref.mds_encode_ref(g, blocks),
            lambda: torch.einsum("nk,krd->nrd", g, blocks),
            n_bytes=4 * (N * K + K * plane + N * plane),
-           flops=2 * N * K * plane, tol=tol[torch.float32])
+           flops=2 * N * K * plane, tol=tol[torch.float32], library_name="torch.einsum")
     del blocks
     torch.cuda.empty_cache()
     for n, k, r, d, dt in [(12, 10, 100, 260, torch.bfloat16), (5, 3, 63, 130, torch.float32),
@@ -196,19 +290,54 @@ def main() -> int:
         compare(f"mds_encode {(n, k, r, d, dt)}", ops.mds_encode(g_r, b_r),
                 ref.mds_encode_ref(g_r, b_r), tol[dt])
 
-    # mds_decode: one round's (C, k, k) × (C, k, rpc)
+    # mds_decode: one round's decode as the main path launches it, from the
+    # k·C partials that coded_matvec leaves, (k·C, rpc), through a (C, k)
+    # position table (each partial used once), into y's final layout
     w = randn(CHUNKS, K, K)
-    y = randn(CHUNKS, K, rpc)
+    parts = randn(K * CHUNKS, rpc)
+    table = torch.randperm(K * CHUNKS, generator=gen, device=dev).view(CHUNKS, K)
+    table_long, table = table, table.to(torch.int32)
+    gathered = parts[table_long]
+
+    def y_view():
+        return torch.empty(K * rows_w, device=dev).view(K, CHUNKS, rpc).transpose(0, 1)
+
     record("mds_decode",
-           lambda: ops.mds_decode(w, y),
-           lambda: ref.mds_decode_ref(w, y),
-           lambda: torch.bmm(w, y),
-           n_bytes=4 * (CHUNKS * K * K + 2 * CHUNKS * K * rpc),
-           flops=2 * CHUNKS * K * K * rpc, tol=tol[torch.float32])
+           lambda: ops.mds_decode_into(w, parts, table, y_view()),
+           lambda: ref.mds_decode_into_ref(w, parts, table, y_view()),
+           lambda: torch.bmm(w, gathered),
+           n_bytes=4 * (CHUNKS * K * K + CHUNKS * K + 2 * CHUNKS * K * rpc),
+           flops=2 * CHUNKS * K * K * rpc, tol=tol[torch.float32],
+           library_name="torch.bmm on pre-gathered partials")
+    composition = {
+        "fused": lambda: ops.mds_decode_into(w, parts, table, y_view()).transpose(0, 1),
+        "gather, mds_decode, transpose":
+            lambda: ops.mds_decode(w, parts[table_long].float()).transpose(0, 1).reshape(
+                K * rows_w),
+        "gather, torch.bmm, transpose":
+            lambda: torch.bmm(w, parts[table_long]).transpose(0, 1).reshape(K * rows_w),
+    }
+    for name, fn in composition.items():
+        compare(f"mds_decode: {name} vs plain", fn().reshape(K * rows_w),
+                ref.mds_decode_into_ref(w, parts, table, y_view()).transpose(0, 1).reshape(
+                    K * rows_w), tol[torch.float32])
+    names = list(composition)
+    in_turns("mds_decode", composition, names + names[::-1])
     for c, k, m, r in [(4, 3, 5, 128), (6, 7, 10, 200), (1, 2, 2, 512), (3, 32, 32, 1000)]:
         w_r, y_r = randn(c, k, m), randn(c, m, r)
         compare(f"mds_decode {(c, k, m, r)}", ops.mds_decode(w_r, y_r),
                 ref.mds_decode_ref(w_r, y_r), tol[torch.float32])
+    # the table-addressed, strided entry at ragged r, with repeated rows
+    for c, k, m, r, n_parts in [(7, 32, 32, 1001, 300), (3, 5, 7, 37, 9), (20, 10, 10, 2999, 200)]:
+        w_r, p_r = randn(c, k, m), randn(n_parts, r)
+        t_r = torch.randint(0, n_parts, (c, m), generator=gen, device=dev, dtype=torch.int32)
+        got = torch.empty(k * c * r, device=dev)
+        want = torch.empty(k * c * r, device=dev)
+        ops.mds_decode_into(w_r, p_r, t_r, got.view(k, c, r).transpose(0, 1))
+        ref.mds_decode_into_ref(w_r, p_r, t_r, want.view(k, c, r).transpose(0, 1))
+        compare(f"mds_decode table-addressed {(c, k, m, r, n_parts)}", got, want,
+                tol[torch.float32])
+    del parts, gathered
 
     # lstm_cell: one predictor step over the n workers, with the trained params
     params = load_params(device=dev)
@@ -227,7 +356,8 @@ def main() -> int:
                lambda: ref.lstm_cell_ref(xs, hs, cs, *wts),
                lambda: cell(xs, (hs, cs)),
                n_bytes=4 * (N + 4 * N * hid + 4 * hid + 4 * hid * hid + 4 * hid),
-               flops=2 * N * 4 * hid * (1 + hid), tol=1e-5)
+               flops=2 * N * 4 * hid * (1 + hid), tol=1e-5,
+               library_name="torch.nn.LSTMCell")
         compare("lstm_cell vs torch.nn.LSTMCell", ops.lstm_cell(xs, hs, cs, *wts),
                 cell(xs, (hs, cs)), 1e-5)
     for b_, i_, h_ in [(100, 3, 8), (7, 2, 16)]:
@@ -238,7 +368,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # -- 3. the main path at full size --------------------------------------
+    # -- 4. the main path at full size --------------------------------------
     a_full = torch.randn(ROWS, COLS, generator=torch.Generator(device=dev).manual_seed(1),
                          device=dev)
     code = MDSCode(N, K)
@@ -286,10 +416,11 @@ def main() -> int:
     del coded
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cm.shard(a_full)
+    coded = cm.shard(a_full)
     torch.cuda.synchronize()
     encode_again_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    designs = ops.design_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     print(f"main path: encode {encode_s * 1e3:.3f} ms (again, memory cached: "
@@ -302,14 +433,25 @@ def main() -> int:
         flush=True)
     print(f"last allocation: counts {alloc.count.tolist()} from predicted speeds "
           f"{np.round(speeds, 3).tolist()}", flush=True)
-    print(f"launches on the main path: {counts}", flush=True)
+    apply_less_matvec = (statistics.median(phase_s["apply"]) * 1e3
+                         - records["coded_matvec"]["device_ms"])
+    print(f"apply less coded_matvec's device time: {apply_less_matvec:.4f} ms", flush=True)
+    print(f"launches on the main path: {counts}; coded_matvec by design: {designs}",
+          flush=True)
     need = {"mds_encode": 1, "coded_matvec": ITERS, "mds_decode": ITERS, "lstm_cell": ITERS}
     short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
     if short:
         raise RuntimeError(f"the main path did not run through every kernel: {short}")
+    if designs != {"stream": counts["coded_matvec"], "general": 0}:
+        raise RuntimeError(f"coded_matvec launches on the main path left the stream "
+                           f"design: {designs}")
+    if counts["coded_matvec"] != ITERS or counts["mds_decode"] != ITERS:
+        raise RuntimeError(f"apply launched coded_matvec {counts['coded_matvec']} and "
+                           f"mds_decode {counts['mds_decode']} times in {ITERS} iterations")
     for name, rec in records.items():
         rec["launches"] = counts[name]
 
+    print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,13 @@ allocation:
      computes exactly the k·C assigned chunks — worker w's chunk
      ``(begin_w + j) mod C`` is global block ``w·C + (begin_w + j) mod C`` —
      so unassigned chunks are never read;
-  3. device: the partials are gathered per chunk in responder order,
-     ``(C, k, rpc)``, and one ``mds_decode`` launch recovers the data-block
-     products, which are laid back out in the original row order.
+  3. device: one ``mds_decode`` launch reads each chunk's k partials where
+     ``coded_matvec`` left them, through a (chunk, responder) position
+     table, and writes the recovered data-block products straight into y
+     in the original row order.
+
+Both index tables reach the card in one pinned, non-blocking copy, so an
+iteration's device work is that copy and two kernels.
 """
 
 from __future__ import annotations
@@ -110,9 +114,10 @@ class CodedMatvec:
         n = begin.shape[0]
         if (count < 0).any() or (count > C).any():
             raise ValueError("per-worker count out of range [0, C]")
-        block_ids = np.concatenate(
-            [w * C + (begin[w] + np.arange(count[w])) % C for w in range(n)])
         offset = np.cumsum(count) - count                  # first slot of worker w
+        worker = np.repeat(np.arange(n), count)            # the worker of each slot
+        slot = np.arange(worker.shape[0]) - offset[worker]
+        block_ids = worker * C + (begin[worker] + slot) % C
         chunk = np.arange(C)[:, None]
         rel = (chunk - begin[responders]) % C              # (C, k)
         if (rel >= count[responders]).any():
@@ -137,13 +142,20 @@ class CodedMatvec:
         block_ids, gather = self._index_tables(
             np.asarray(begin, dtype=np.int64), np.asarray(count, dtype=np.int64),
             np.asarray(responders, dtype=np.int64))
-        ids_t = torch.as_tensor(block_ids, dtype=torch.int32).to(coded.device)
-        gather_t = torch.as_tensor(gather, dtype=torch.int64).to(coded.device)
-        parts = ops.coded_matvec(coded.view(n * rows, d), x, ids_t, rpc)  # (Σcount, rpc)
-        y = parts[gather_t].float()                                      # (C, k, rpc)
-        dec = ops.mds_decode(weights, y)                                 # (C, k, rpc)
-        # data block i, chunk c, row r  <-  position i·rows + c·rpc + r
-        return dec.transpose(0, 1).reshape(k * rows).to(x.dtype)
+        nb = block_ids.shape[0]
+        # both tables in one int32 buffer, pinned so that the copy is async
+        host = torch.empty(nb + C * k, dtype=torch.int32,
+                           pin_memory=coded.device.type == "cuda")
+        host_np = host.numpy()
+        host_np[:nb] = block_ids
+        host_np[nb:] = gather.ravel()
+        tables = host.to(coded.device, non_blocking=True)
+        parts = ops.coded_matvec(coded.view(n * rows, d), x, tables[:nb], rpc)  # (nb, rpc)
+        y = torch.empty(k * rows, dtype=torch.float32, device=coded.device)
+        # data block i, chunk c, row r  ->  position i·rows + c·rpc + r
+        ops.mds_decode_into(weights, parts.float(), tables[nb:].view(C, k),
+                            y.view(k, C, rpc).transpose(0, 1))
+        return y.to(x.dtype)
 
 
 def oracle_matvec(a: np.ndarray, x: np.ndarray) -> np.ndarray:

@@ -10,6 +10,11 @@ module is imported: the CPU tests import every module and have no ``nvcc``.
 
 Every entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
+
+The wrappers call in here on every launch, so the common path is cheap: the
+loaded library's functions are resolved once (:func:`kernel` is a dict
+lookup), and :func:`stream_of` reads PyTorch's current raw stream handle
+without building a ``torch.cuda.Stream`` object.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_ROOT", "CSRC", "SOURCES", "build", "library", "check",
+__all__ = ["BUILD_ROOT", "CSRC", "SOURCES", "build", "library", "kernel", "check",
            "stream_of", "DTYPE_CODES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -44,13 +49,15 @@ _I = ctypes.c_int
 # name -> argtypes; every entry point returns an int (a cudaError_t)
 _SIGNATURES = {
     "s2c2_coded_matvec": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _P],
+    "s2c2_coded_matvec_stream": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "s2c2_mds_encode": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
-    "s2c2_mds_decode": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "s2c2_mds_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     "s2c2_lstm_cell": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_fns: dict[str, ctypes._CFuncPtr] = {}     # entry point name -> bound function
 
 
 def _nvcc() -> str | None:
@@ -121,6 +128,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -128,10 +137,18 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _fns[name] = fn
             lib.s2c2_error_string.argtypes = [ctypes.c_int]
             lib.s2c2_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def kernel(name: str) -> ctypes._CFuncPtr:
+    """The entry point ``name`` of the library, which is built on first use."""
+    if _lib is None:
+        library()
+    return _fns[name]
 
 
 def check(err: int, kernel: str) -> None:
@@ -143,4 +160,4 @@ def check(err: int, kernel: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

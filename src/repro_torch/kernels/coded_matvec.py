@@ -6,12 +6,23 @@ partition; only those blocks are read, so the cost scales with the work
 assigned.
 
 On Hopper the kernel (``csrc/coded_matvec.cu``) is bound by device-memory
-bytes: at ``nvec = 1`` each element read feeds one multiply-add.  It reads
-each assigned row once with 16-byte loads, one warp per row, accumulating in
-float32; each block reads its row-block id itself (the TPU kernel's scalar
-prefetch) and walks the contraction dim in a loop (the TPU's sequential
-d-tile axis).  Unlike the TPU wrapper, nothing is padded: no d tile, and no
-128 lanes of ``nvec`` for a single vector.
+bytes: at ``nvec = 1`` each element read feeds one multiply-add.  Two designs,
+chosen by shape, never by trying one:
+
+* the stream (:func:`coded_matvec_stream`), for ``nvec = 1`` with rows of a
+  multiple of 16 bytes and at most ``MAX_STREAM_ROW_BYTES``, and a 16-byte
+  aligned ``a``: a persistent grid, one block per SM, in which one thread
+  keeps a ring of shared-memory tiles filled by bulk copies (TMA) while
+  consumer warps reduce rows out of it, so the bytes in flight never wait
+  for a reduction.  The main path takes it.
+* the general path (:func:`coded_matvec_general`) for every other shape: one
+  warp per row, 16-byte loads where d and the alignment allow, ``nvec`` up
+  to 16.
+
+Both accumulate in float32, read each assigned row once, and give NaN rows
+for an id outside ``a``.  Each block id is read by the kernel itself (the
+TPU kernel's scalar prefetch), and nothing is padded: no d tile, and no 128
+lanes of ``nvec`` for a single vector.
 """
 
 from __future__ import annotations
@@ -20,11 +31,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["coded_matvec_plain", "coded_matvec_cuda", "MAX_NVEC"]
+__all__ = ["coded_matvec_plain", "coded_matvec_cuda", "coded_matvec_stream",
+           "coded_matvec_general", "takes_stream", "MAX_NVEC", "MAX_STREAM_ROW_BYTES"]
 
 MAX_NVEC = 16
+MAX_STREAM_ROW_BYTES = 32 * 1024  # kMaxRowBytes in csrc/coded_matvec.cu
 _ROWS_PER_LAUNCH_BLOCK = 64      # kRowsPerBlock in csrc/coded_matvec.cu
-launches = 0        # kernel launches since the last reset (see ops.reset_launch_counts)
+# kernel launches since the last reset (see ops.reset_launch_counts): all of
+# them, and those of each design
+launches = 0
+launches_stream = 0
+launches_general = 0
 
 
 def _as_matrix(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
@@ -50,10 +67,9 @@ def coded_matvec_plain(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor
     return out[:, :, 0] if squeeze else out
 
 
-def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
-                      block_rows: int) -> torch.Tensor:
-    """Launch the CUDA kernel; same contract as :func:`coded_matvec_plain`."""
-    global launches
+def _checked(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
+             block_rows: int) -> tuple[torch.Tensor, bool]:
+    """Validate a CUDA call; return x as (d, nvec) and whether it was (d,)."""
     x2, squeeze = _as_matrix(x)
     if a.ndim != 2:
         raise ValueError(f"a must be (rows, d), got shape {tuple(a.shape)}")
@@ -71,19 +87,79 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
         raise ValueError(f"rows={rows} not divisible by block_rows={block_rows}")
     if not 1 <= nvec <= MAX_NVEC:
         raise ValueError(f"nvec={nvec} outside [1, {MAX_NVEC}]")
+    return x2, squeeze
+
+
+def takes_stream(a: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether :func:`coded_matvec_cuda` runs these operands on the stream design."""
+    row_bytes = a.shape[1] * a.element_size()
+    return ((x.ndim == 1 or x.shape[1] == 1) and row_bytes % 16 == 0
+            and row_bytes <= MAX_STREAM_ROW_BYTES and a.data_ptr() % 16 == 0)
+
+
+def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
+                      block_rows: int) -> torch.Tensor:
+    """Launch the CUDA kernel of the design the shape takes; same contract as
+    :func:`coded_matvec_plain`."""
+    _build.library()            # without a toolkit, raise before any pointer is read
+    x2, squeeze = _checked(a, x, block_ids, block_rows)
+    if takes_stream(a, x2):
+        return _stream(a, x2, block_ids, block_rows, squeeze)
+    return _general(a, x2, block_ids, block_rows, squeeze)
+
+
+def coded_matvec_stream(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
+                        block_rows: int) -> torch.Tensor:
+    """The persistent, TMA-fed design; raises for a shape it does not take."""
+    _build.library()
+    x2, squeeze = _checked(a, x, block_ids, block_rows)
+    if not takes_stream(a, x2):
+        raise ValueError(f"the stream design takes nvec = 1 and 16-byte-aligned rows of at "
+                         f"most {MAX_STREAM_ROW_BYTES} bytes, got a {tuple(a.shape)} "
+                         f"{a.dtype} at {a.data_ptr() % 16} past 16, nvec={x2.shape[1]}")
+    return _stream(a, x2, block_ids, block_rows, squeeze)
+
+
+def coded_matvec_general(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
+                         block_rows: int) -> torch.Tensor:
+    """The warp-per-row design, for any shape the kernel takes."""
+    _build.library()
+    x2, squeeze = _checked(a, x, block_ids, block_rows)
+    return _general(a, x2, block_ids, block_rows, squeeze)
+
+
+def _stream(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
+    global launches, launches_stream
+    nb = block_ids.shape[0]
+    out = torch.empty((nb, block_rows), dtype=a.dtype, device=a.device)
+    if nb:
+        err = _build.kernel("s2c2_coded_matvec_stream")(
+            a.data_ptr(), x2.data_ptr(), block_ids.data_ptr(), out.data_ptr(),
+            a.shape[0] // block_rows, nb, block_rows, a.shape[1], _build.DTYPE_CODES[a.dtype],
+            _build.stream_of(a))
+        _build.check(err, "coded_matvec (stream)")
+        launches += 1
+        launches_stream += 1
+    return out if squeeze else out[:, :, None]
+
+
+def _general(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
+    global launches, launches_general
+    rows, d = a.shape
+    nvec = x2.shape[1]
     nb = block_ids.shape[0]
     tiles = -(-block_rows // _ROWS_PER_LAUNCH_BLOCK)
     if nb * tiles >= 2**31:
         raise ValueError(f"{nb} blocks of {block_rows} rows exceed one launch's grid")
-    lib = _build.library()
     out = torch.empty((nb, block_rows, nvec), dtype=a.dtype, device=a.device)
     if nb:
         packet = 16 // a.element_size()
         vec = (d % packet == 0 and a.data_ptr() % 16 == 0 and x2.data_ptr() % 16 == 0)
-        err = lib.s2c2_coded_matvec(
+        err = _build.kernel("s2c2_coded_matvec")(
             a.data_ptr(), x2.data_ptr(), block_ids.data_ptr(), out.data_ptr(),
             rows // block_rows, nb, block_rows, d, nvec, _build.DTYPE_CODES[a.dtype],
             int(vec), _build.stream_of(a))
         _build.check(err, "coded_matvec")
         launches += 1
+        launches_general += 1
     return out[:, :, 0] if squeeze else out

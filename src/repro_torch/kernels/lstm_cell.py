@@ -45,23 +45,25 @@ def lstm_cell_cuda(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         raise ValueError("need x (B, I) and h, c (B, H)")
     bsz, idim = x.shape
     hdim = h.shape[1]
-    shapes = {"h": (h, (bsz, hdim)), "c": (c, (bsz, hdim)), "w_ih": (w_ih, (4 * hdim, idim)),
-              "w_hh": (w_hh, (4 * hdim, hdim)), "b": (b, (4 * hdim,))}
-    for name, (t, want) in shapes.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+    # the kernel reads x, h, c and writes h', c' over bsz rows of each
+    if (h.shape != (bsz, hdim) or c.shape != h.shape or w_ih.shape != (4 * hdim, idim)
+            or w_hh.shape != (4 * hdim, hdim) or b.shape != (4 * hdim,)):
+        raise ValueError(f"shapes x {tuple(x.shape)}, h {tuple(h.shape)}, c {tuple(c.shape)}, "
+                         f"w_ih {tuple(w_ih.shape)}, w_hh {tuple(w_hh.shape)}, b "
+                         f"{tuple(b.shape)} do not make one LSTM cell")
     tensors = (x, h, c, w_ih, w_hh, b)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("lstm_cell takes float32 tensors")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("lstm_cell needs contiguous tensors")
-    lib = _build.library()
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError("lstm_cell takes float32 tensors")
+        if not t.is_contiguous():
+            raise ValueError("lstm_cell needs contiguous tensors")
+    fn = _build.kernel("s2c2_lstm_cell")
     h_new = torch.empty_like(h)
     c_new = torch.empty_like(c)
     if bsz and hdim:
-        err = lib.s2c2_lstm_cell(
-            *(t.data_ptr() for t in tensors), h_new.data_ptr(), c_new.data_ptr(),
-            bsz, idim, hdim, _build.stream_of(x))
+        err = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
+                 b.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), bsz, idim, hdim,
+                 _build.stream_of(x))
         _build.check(err, "lstm_cell")
         launches += 1
     return h_new, c_new

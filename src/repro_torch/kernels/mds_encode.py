@@ -39,6 +39,7 @@ def mds_encode_cuda(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     then widened to float32 for the kernel.
     """
     global launches
+    fn = _build.kernel("s2c2_mds_encode")
     if g.ndim != 2 or blocks.ndim < 2:
         raise ValueError(f"need g (n, k) and blocks (k, rows, ...), got "
                          f"{tuple(g.shape)} and {tuple(blocks.shape)}")
@@ -51,7 +52,6 @@ def mds_encode_cuda(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"blocks must be float32 or bfloat16, got {blocks.dtype}")
     if not blocks.is_contiguous():
         raise ValueError("mds_encode needs contiguous blocks")
-    lib = _build.library()
     g32 = g.to(blocks.dtype).to(torch.float32).contiguous()
     out = torch.empty((n,) + tuple(blocks.shape[1:]), dtype=blocks.dtype,
                       device=blocks.device)
@@ -60,7 +60,7 @@ def mds_encode_cuda(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
         quad = 4 * blocks.element_size()
         vec = plane % 4 == 0 and blocks.data_ptr() % quad == 0 and out.data_ptr() % quad == 0
         sms = torch.cuda.get_device_properties(blocks.device).multi_processor_count
-        err = lib.s2c2_mds_encode(
+        err = fn(
             g32.data_ptr(), blocks.data_ptr(), out.data_ptr(), n, k, plane,
             _build.DTYPE_CODES[blocks.dtype], int(vec), sms, _build.stream_of(blocks))
         _build.check(err, "mds_encode")

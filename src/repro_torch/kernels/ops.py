@@ -17,8 +17,8 @@ from repro_torch.kernels import lstm_cell as _lstm
 from repro_torch.kernels import mds_decode as _dec
 from repro_torch.kernels import mds_encode as _enc
 
-__all__ = ["coded_matvec", "mds_encode", "mds_decode", "lstm_cell",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["coded_matvec", "mds_encode", "mds_decode", "mds_decode_into", "lstm_cell",
+           "launch_counts", "design_counts", "reset_launch_counts"]
 
 _MODULES = {"coded_matvec": _cmv, "mds_encode": _enc, "mds_decode": _dec,
             "lstm_cell": _lstm}
@@ -66,6 +66,18 @@ def mds_decode(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _dec.mds_decode_plain(w, y)
 
 
+def mds_decode_into(w: torch.Tensor, parts: torch.Tensor, table: torch.Tensor,
+                    out: torch.Tensor) -> torch.Tensor:
+    """out[c] = w[c] @ parts[table[c]], written into ``out`` and returned.
+
+    w: (chunks, k, m); parts: (P, r); table: (chunks, m) int32; out: a
+    (chunks, k, r) tensor or strided view whose last dim is contiguous.
+    """
+    if _use_kernel("mds_decode", w, parts, table, out):
+        return _dec.mds_decode_into_cuda(w, parts, table, out)
+    return _dec.mds_decode_into_plain(w, parts, table, out)
+
+
 def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor):
     """Fused LSTM cell; shapes as in :func:`ref.lstm_cell_ref`."""
@@ -79,6 +91,12 @@ def launch_counts() -> dict[str, int]:
     return {name: mod.launches for name, mod in _MODULES.items()}
 
 
+def design_counts() -> dict[str, int]:
+    """``coded_matvec``'s launches per design since the last reset."""
+    return {"stream": _cmv.launches_stream, "general": _cmv.launches_general}
+
+
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+    _cmv.launches_stream = _cmv.launches_general = 0

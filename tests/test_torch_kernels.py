@@ -28,6 +28,9 @@ TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MATVEC_SHAPES = [(8, 8, 128, 1), (12, 16, 300, 3), (6, 32, 512, 8), (5, 8, 130, 2)]
 ENCODE_SHAPES = [(5, 3, 64, 128), (12, 10, 100, 260), (4, 4, 16, 640)]
 DECODE_SHAPES = [(4, 3, 5, 128), (6, 7, 10, 200), (1, 2, 2, 512)]
+# the table-addressed decode: (chunks, k, m, r, partial rows P)
+DECODE_INTO_SHAPES = [(4, 3, 3, 128, 12), (20, 10, 10, 30, 200), (3, 5, 7, 37, 9)]
+TABLES = ["identity", "permuted", "repeated"]
 LSTM_SHAPES = [(1, 1, 4), (12, 1, 4), (100, 3, 8), (7, 2, 16)]
 
 
@@ -86,6 +89,23 @@ class TestCodedMatvec:
         assert got.shape == (3, 8)
         np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
 
+    @pytest.mark.parametrize("d,dtype,nvec,offset,stream", [
+        (2048, torch.float32, None, 0, True), (2048, torch.float32, 1, 0, True),
+        (4096, torch.bfloat16, None, 0, True), (8192, torch.float32, None, 0, True),
+        (16384, torch.bfloat16, None, 0, True), (4, torch.float32, None, 0, True),
+        (130, torch.float32, None, 0, False), (2048, torch.float32, 3, 0, False),
+        (2048, torch.float32, None, 1, False), (8200, torch.float32, None, 0, False),
+        (16392, torch.bfloat16, None, 0, False)])
+    def test_stream_dispatch_rule(self, d, dtype, nvec, offset, stream):
+        """The stream design takes nvec = 1 with 16-byte-aligned rows of at
+        most 32 KB; everything else goes to the general path."""
+        from repro_torch.kernels import coded_matvec as cmv
+        flat = torch.empty(8 * d + 16, dtype=dtype)
+        shift = (-flat.data_ptr() % 16) // flat.element_size() + offset
+        a = flat[shift:shift + 8 * d].view(8, d)
+        x = torch.empty(d, dtype=dtype) if nvec is None else torch.empty(d, nvec, dtype=dtype)
+        assert cmv.takes_stream(a, x) == stream
+
     def test_work_scales_with_assignment(self):
         """Compacted output shape == number of assigned blocks (the S²C² property)."""
         a = torch.randn(64, 128)
@@ -134,6 +154,48 @@ class TestMDSDecode:
         np.testing.assert_allclose(got.numpy(), blocks.numpy(), rtol=1e-3, atol=1e-3)
 
 
+def _table(kind, rng, chunks, m, n_parts):
+    """(chunks, m) row numbers of the partials: each row once in order, each
+    row once in a random order, or rows drawn with repeats."""
+    if kind == "identity":
+        return np.arange(chunks * m, dtype=np.int32).reshape(chunks, m) % n_parts
+    if kind == "permuted":
+        return rng.permutation(max(n_parts, chunks * m))[: chunks * m].astype(
+            np.int32).reshape(chunks, m) % n_parts
+    return rng.integers(0, n_parts, size=(chunks, m), dtype=np.int32)
+
+
+class TestMDSDecodeInto:
+    """The table-addressed, strided decode of ``CodedMatvec.apply`` against
+    the JAX package's decode on the gathered partials followed by the
+    swap-and-reshape of ``src/repro/core/coded_matmul.py:156-159``."""
+
+    @pytest.mark.parametrize("kind", TABLES)
+    @pytest.mark.parametrize("chunks,k,m,r,n_parts", DECODE_INTO_SHAPES)
+    def test_plain_matches_jax(self, jax_kernels, kind, chunks, k, m, r, n_parts):
+        import jax.numpy as jnp
+        _, jref = jax_kernels
+        rng = np.random.default_rng(chunks * 100 + r)
+        w_np, parts_np = _rand(rng, (chunks, k, m)), _rand(rng, (n_parts, r))
+        table_np = _table(kind, rng, chunks, m, n_parts)
+        y = torch.full((k * chunks * r,), float("nan"))
+        got = ops.mds_decode_into(torch.from_numpy(w_np), torch.from_numpy(parts_np),
+                                  torch.from_numpy(table_np),
+                                  y.view(k, chunks, r).transpose(0, 1))
+        assert got.shape == (chunks, k, r)
+        dec = jref.mds_decode_ref(jnp.asarray(w_np), jnp.asarray(parts_np[table_np]))
+        want = jnp.swapaxes(dec, 0, 1).reshape(k * chunks * r)
+        np.testing.assert_allclose(y.numpy(), _np(want), **TOL["float32"])
+
+    def test_contiguous_out_is_the_jax_contract(self, jax_kernels):
+        """The identity table and a contiguous out give ``mds_decode`` itself."""
+        rng = np.random.default_rng(3)
+        w, y = torch.from_numpy(_rand(rng, (6, 7, 10))), torch.from_numpy(_rand(rng, (6, 10, 200)))
+        table = torch.arange(60, dtype=torch.int32).view(6, 10)
+        got = ops.mds_decode_into(w, y.view(60, 200), table, torch.empty(6, 7, 200))
+        np.testing.assert_allclose(got.numpy(), ops.mds_decode(w, y).numpy(), **TOL["float32"])
+
+
 class TestLSTMCell:
     @pytest.mark.parametrize("b,i,h", LSTM_SHAPES)
     def test_plain_matches_jax(self, jax_kernels, b, i, h):
@@ -147,6 +209,25 @@ class TestLSTMCell:
                      jops.lstm_cell(*(jnp.asarray(a) for a in arrs))):
             np.testing.assert_allclose(gh.numpy(), _np(want[0]), **LSTM_TOL)
             np.testing.assert_allclose(gc.numpy(), _np(want[1]), **LSTM_TOL)
+
+
+    @pytest.mark.parametrize("shapes", [
+        [(8, 1), (2, 4), (2, 4), (16, 1), (16, 4), (16,)],   # h and c: another batch than x
+        [(2, 1), (2, 4), (8, 4), (16, 1), (16, 4), (16,)],   # c: another batch than h
+        [(2, 1), (2, 4), (2, 4), (16, 2), (16, 4), (16,)],   # w_ih: another input width
+        [(2, 1), (2, 4), (2, 4), (16, 1), (12, 4), (16,)],   # w_hh: another hidden width
+        [(2, 1), (2, 4), (2, 4), (16, 1), (16, 4), (15,)],   # b: another gate width
+    ])
+    def test_cuda_wrapper_refuses_mismatched_shapes(self, monkeypatch, shapes):
+        """The kernel indexes every operand by x's batch and h's width, so
+        the wrapper refuses any other shape before it reaches the library."""
+        from repro_torch.kernels import _build, lstm_cell
+
+        def forbidden(name):
+            raise AssertionError(f"{name} reached with mismatched shapes")
+        monkeypatch.setattr(_build, "kernel", forbidden)
+        with pytest.raises(ValueError, match="do not make one LSTM cell"):
+            lstm_cell.lstm_cell_cuda(*(torch.zeros(s) for s in shapes))
 
 
 class TestDispatch:
@@ -226,6 +307,121 @@ def test_cuda_lstm_cell(cuda, b, i, h):
     (gh, gc), (wh, wc) = ops.lstm_cell(*args), ref.lstm_cell_ref(*args)
     np.testing.assert_allclose(gh.cpu().numpy(), wh.cpu().numpy(), **LSTM_TOL)
     np.testing.assert_allclose(gc.cpu().numpy(), wc.cpu().numpy(), **LSTM_TOL)
+
+
+# the stream design: (blocks in a, assigned nb, br, d); nb = 0, 1, fewer
+# than the grid's 132 blocks and many times it, br not a multiple of the
+# tile's rows (64 KB tiles: 8 rows at d = 2,048 float32, 4 at 4,096, 16 at
+# 1,024; twice as many in bfloat16)
+STREAM_SHAPES = [(4, 0, 16, 2048), (4, 1, 37, 2048), (64, 40, 11, 4096), (600, 1500, 6, 2048),
+                 (50, 300, 130, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_blocks,nb,br,d", STREAM_SHAPES)
+def test_cuda_coded_matvec_stream(cuda, dtype, n_blocks, nb, br, d):
+    from repro_torch.kernels import coded_matvec as cmv
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = _cuda_rand(gen, (n_blocks * br, d), TORCH_DTYPE[dtype])
+    x = _cuda_rand(gen, (d,), TORCH_DTYPE[dtype])
+    ids = torch.randint(0, n_blocks, (nb,), generator=gen, device=cuda, dtype=torch.int32)
+    ops.reset_launch_counts()
+    got = cmv.coded_matvec_stream(a, x, ids, br)
+    assert ops.design_counts() == {"stream": int(nb > 0), "general": 0}
+    want = ref.coded_matvec_ref(a, x, ids, br)
+    torch.cuda.synchronize()
+    assert got.shape == (nb, br) and got.dtype == a.dtype
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 6144, 8192])
+def test_cuda_coded_matvec_stream_ring_depths(cuda, d):
+    """The ring's depth follows d: float32 rows of 64 and 128 columns make
+    8 and 7 stages of 64 rows, of 6,144 and 8,192 columns 4 and 3 stages of
+    2 rows; each gives the same product."""
+    from repro_torch.kernels import coded_matvec as cmv
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a, x = _cuda_rand(gen, (40 * 13, d)), _cuda_rand(gen, (d,))
+    ids = torch.randint(0, 40, (300,), generator=gen, device=cuda, dtype=torch.int32)
+    got = cmv.coded_matvec_stream(a, x, ids, 13)
+    want = ref.coded_matvec_ref(a, x, ids, 13)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_coded_matvec_stream_bad_id_gives_nan(cuda, dtype):
+    from repro_torch.kernels import coded_matvec as cmv
+    a = torch.ones(5 * 9, 256, device=cuda, dtype=TORCH_DTYPE[dtype])
+    x = torch.ones(256, device=cuda, dtype=TORCH_DTYPE[dtype])
+    ids = torch.tensor([1, 5, -1, 4], dtype=torch.int32, device=cuda)
+    out = cmv.coded_matvec_stream(a, x, ids, 9)
+    torch.cuda.synchronize()
+    assert torch.all(out[[0, 3]] == 256)
+    assert torch.isnan(out[[1, 2]].float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_coded_matvec_design_follows_shape(cuda):
+    """Aligned nvec = 1 shapes take the stream; a ragged row, a misaligned
+    base, several vectors or a row over 32 KB take the general path."""
+    from repro_torch.kernels import coded_matvec as cmv
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ids = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
+    flat = _cuda_rand(gen, (4 * 8 * 2048 + 1,))
+    cases = {
+        "stream": [(_cuda_rand(gen, (32, 2048)), _cuda_rand(gen, (2048,))),
+                   (_cuda_rand(gen, (32, 4096), torch.bfloat16),
+                    _cuda_rand(gen, (4096, 1), torch.bfloat16)),
+                   (_cuda_rand(gen, (32, 8192)), _cuda_rand(gen, (8192,)))],
+        "general": [(_cuda_rand(gen, (32, 130)), _cuda_rand(gen, (130,))),
+                    (flat[1:].view(32, 2048), _cuda_rand(gen, (2048,))),
+                    (_cuda_rand(gen, (32, 2048)), _cuda_rand(gen, (2048, 3))),
+                    (_cuda_rand(gen, (32, 8200)), _cuda_rand(gen, (8200,)))],
+    }
+    for design, operands in cases.items():
+        for a, x in operands:
+            ops.reset_launch_counts()
+            got = ops.coded_matvec(a, x, ids, 8)
+            assert cmv.takes_stream(a, x) == (design == "stream")
+            assert ops.design_counts() == {"stream": int(design == "stream"),
+                                           "general": int(design == "general")}
+            np.testing.assert_allclose(_np(got.cpu()),
+                                       _np(ref.coded_matvec_ref(a, x, ids, 8).cpu()),
+                                       **TOL["float32" if a.dtype == torch.float32
+                                             else "bfloat16"])
+    with pytest.raises(ValueError, match="stream design takes"):
+        cmv.coded_matvec_stream(a, x, ids, 8)
+    ops.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TABLES)
+@pytest.mark.parametrize("chunks,k,m,r,n_parts", DECODE_INTO_SHAPES + [(20, 10, 10, 3000, 200),
+                                                                      (7, 32, 32, 1001, 300)])
+def test_cuda_mds_decode_into(cuda, kind, chunks, k, m, r, n_parts):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    w, parts = _cuda_rand(gen, (chunks, k, m)), _cuda_rand(gen, (n_parts, r))
+    table = torch.from_numpy(_table(kind, np.random.default_rng(r), chunks, m,
+                                    n_parts)).to(cuda)
+    got = torch.full((k * chunks * r,), float("nan"), device=cuda)
+    want = torch.full_like(got, float("nan"))
+    ops.mds_decode_into(w, parts, table, got.view(k, chunks, r).transpose(0, 1))
+    ref.mds_decode_into_ref(w, parts, table, want.view(k, chunks, r).transpose(0, 1))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL["float32"])
+
+
+@pytest.mark.cuda
+def test_cuda_mds_decode_into_bad_row_gives_nan(cuda):
+    w = torch.ones(2, 3, 2, device=cuda)
+    parts = torch.ones(4, 16, device=cuda)
+    table = torch.tensor([[0, 1], [2, 4]], dtype=torch.int32, device=cuda)
+    out = ops.mds_decode_into(w, parts, table, torch.empty(2, 3, 16, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.all(out[0] == 2) and torch.isnan(out[1]).all()
 
 
 @pytest.mark.cuda
