@@ -13,23 +13,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    main path's shapes and at ragged ones, and time kernel, plain version and
    one PyTorch library call two ways, with CUDA events:
    - ``device_ms``: many launches back to back, queued behind a sleep kernel
-     so that the host runs ahead, divided by their count: the device's time;
+     so that the host runs ahead (checked, and timed again with fewer calls
+     where it did not), divided by their count: the device's time;
    - ``call_ms``: the median of 20 single calls, each timed from the host's
      enqueue: the time a caller that waits for each call sees;
+   the predictor's kernel is timed as the main path calls it, one 32-step
+   window over the 12 workers through the sequence kernel; beside it the
+   per-step cell and the launch floor (a one-element in-place add);
 3. in turns on the card (new, old, old, new), at the main shape:
    ``coded_matvec``'s stream design against the warp-per-row design, each
    reached directly, and against ``torch.matmul`` on the same rows gathered
    beforehand; the fused decode against the composition it replaced (index
    gather → ``mds_decode`` → transpose copy) and against the same three
-   steps with ``torch.bmm``;
+   steps with ``torch.bmm``; the predictor's 32-step window through the
+   sequence kernel against the per-step loop it replaced (32 ``lstm_cell``
+   launches, each with the head) and against ``torch.nn.LSTM`` and the head;
 4. the main path at full size: encode a 600,000 × 2,048 float32 matrix with
    a (12, 10)-MDS code, then 30 iterations of predict (LSTM) → plan
    (Algorithm 1) → coded matvec (assigned chunks only) → decode, each checked
    against a float64 product on the card, then one more encode with the
    allocator's memory warm; the kernels' launch counters are zeroed just
    before this phase and read just after it.  It fails unless every
-   ``coded_matvec`` launch took the stream design and ``mds_decode``
-   launched exactly once per iteration.
+   ``coded_matvec`` launch took the stream design, ``mds_decode``
+   launched exactly once per iteration, and the predictor launched the
+   sequence kernel once per prediction with history (29) and the per-step
+   cell never.  Before it, the last prediction's window is run both through
+   the sequence kernel and through the per-step loop, which must agree.
 
 The last lines are the in-turn times as JSON, the per-kernel record as JSON
 (``ms``, ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the
@@ -52,6 +61,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # (benchmarks/fig_overheads.py: (n, k) = (12, 10), D = 600,000; C = 20 chunks
 # as in examples/pagerank.py), with d = 2,048 float32 columns
 N, K, CHUNKS, ROWS, COLS, ITERS = 12, 10, 20, 600_000, 2_048, 30
+WINDOW = 32                     # the predictor's window (SpeedPredictor's default)
 REL_ERR_LIMIT = 1e-3
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
@@ -91,7 +101,7 @@ def main() -> int:
     from repro_torch.convert import load_params
     from repro_torch.core.coded_matmul import CodedMatvec
     from repro_torch.core.coding import MDSCode
-    from repro_torch.core.predictor import SpeedPredictor
+    from repro_torch.core.predictor import SpeedPredictor, predict_next
     from repro_torch.core.s2c2 import general_allocation
     from repro_torch.core.traces import controlled_traces
     from repro_torch.kernels import _build, ops, ref
@@ -136,19 +146,36 @@ def main() -> int:
 
     def device_ms(fn, per_call_ms: float) -> float:
         """Launches back to back on the device: they are queued behind a
-        sleep long enough for the host to enqueue all of them first."""
+        sleep long enough for the host to enqueue all of them first.
+
+        An event recorded just after the sleep says whether it was: where
+        the sleep had ended before the host enqueued the last call (a slow
+        host, or more launches than the device's queue holds, as in a loop
+        of small launches), the window would time the host, so it is timed
+        again with a quarter of the calls and twice the sleep.
+        """
         n = int(min(200, max(5, DEVICE_WINDOW_MS / per_call_ms)))
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(1.5 * n * per_call_ms * sleep_cycles_per_ms) + 1000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
+        margin = 1.5
+        while True:
             fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / n
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(margin * n * per_call_ms * sleep_cycles_per_ms) + 1000)
+            slept = torch.cuda.Event()
+            slept.record()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            host_ahead = not slept.query()
+            end.synchronize()
+            if host_ahead:
+                return start.elapsed_time(end) / n
+            if margin >= 48:
+                raise RuntimeError(f"device_ms: the host did not get ahead of the device "
+                                   f"with {n} call(s) behind a {margin}x sleep")
+            n, margin = max(1, n // 4), margin * 2
 
     def timed(fn) -> dict:
         c = call_ms(fn)
@@ -209,6 +236,17 @@ def main() -> int:
             print(f"in turns, {label}: {name}: device ms "
                   f"{', '.join(f'{v:.4f}' for v in ts['device_ms'])}; call ms "
                   f"{', '.join(f'{v:.4f}' for v in ts['call_ms'])}", flush=True)
+
+    def cell_loop(xs_, w_ih, w_hh, b, w_out, b_out):
+        """The window step by step: one lstm_cell launch per step, the head
+        after each (the predictor's loop before the sequence kernel)."""
+        h = xs_.new_zeros((xs_.shape[1], w_hh.shape[1]))
+        c = xs_.new_zeros((xs_.shape[1], w_hh.shape[1]))
+        ys = []
+        for x_ in xs_:
+            h, c = ops.lstm_cell(x_.contiguous(), h, c, w_ih, w_hh, b)
+            ys.append(h @ w_out.T + b_out)
+        return torch.stack(ys)
 
     tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
     rows_w = ROWS // K                   # rows of one coded partition
@@ -339,32 +377,88 @@ def main() -> int:
                 tol[torch.float32])
     del parts, gathered
 
-    # lstm_cell: one predictor step over the n workers, with the trained params
+    # lstm_cell: what the main path calls, one window of T = 32 steps over the
+    # n workers with the trained params, through the sequence kernel
     params = load_params(device=dev)
-    hid = params.w_hh.shape[1]
-    xs, hs, cs = randn(N, 1), randn(N, hid), randn(N, hid)
-    wts = (params.w_ih.detach(), params.w_hh.detach(), params.b.detach())
+    hid, out_dim = params.w_hh.shape[1], params.w_out.shape[0]
+    seq_w = tuple(p.detach() for p in (params.w_ih, params.w_hh, params.b, params.w_out,
+                                       params.b_out))
+    wts = seq_w[:3]
+    window = torch.as_tensor(controlled_traces(N, WINDOW, n_stragglers=2, seed=7),
+                             dtype=torch.float32, device=dev)[:, :, None].contiguous()
+    lstm = torch.nn.LSTM(1, hid, device=dev)
     cell = torch.nn.LSTMCell(1, hid, device=dev)
     with torch.no_grad():
-        cell.weight_ih.copy_(wts[0])
-        cell.weight_hh.copy_(wts[1])
-        cell.bias_ih.copy_(wts[2])
-        cell.bias_hh.zero_()
+        for mod, (w_ih, w_hh, b_ih, b_hh) in [
+                (lstm, (lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0, lstm.bias_hh_l0)),
+                (cell, (cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh))]:
+            w_ih.copy_(wts[0])
+            w_hh.copy_(wts[1])
+            b_ih.copy_(wts[2])
+            b_hh.zero_()
+
+    def lstm_and_head(xs_):
+        return lstm(xs_)[0] @ seq_w[3].T + seq_w[4]
+
     with torch.no_grad():
         record("lstm_cell",
-               lambda: ops.lstm_cell(xs, hs, cs, *wts),
-               lambda: ref.lstm_cell_ref(xs, hs, cs, *wts),
-               lambda: cell(xs, (hs, cs)),
-               n_bytes=4 * (N + 4 * N * hid + 4 * hid + 4 * hid * hid + 4 * hid),
-               flops=2 * N * 4 * hid * (1 + hid), tol=1e-5,
-               library_name="torch.nn.LSTMCell")
+               lambda: ops.lstm_sequence(window, *seq_w),
+               lambda: ref.lstm_sequence_ref(window, *seq_w),
+               lambda: lstm_and_head(window),
+               n_bytes=4 * (WINDOW * N + WINDOW * N * out_dim + 4 * hid + 4 * hid * hid
+                            + 4 * hid + out_dim * hid + out_dim),
+               flops=2 * WINDOW * N * (4 * hid * (1 + hid) + out_dim * hid), tol=1e-5,
+               library_name="torch.nn.LSTM(1, 4) over the window, then the head's matmul "
+                            "and add")
+        records["lstm_cell"]["design"] = "sequence"
+        compare("lstm_sequence vs torch.nn.LSTM and the head", ops.lstm_sequence(window, *seq_w),
+                lstm_and_head(window), 1e-5)
+        compare("lstm_sequence vs the per-step loop", ops.lstm_sequence(window, *seq_w),
+                cell_loop(window, *seq_w), 1e-5)
+        # the launch floor, and the per-step cell at its main shape
+        one = torch.zeros(1, device=dev)
+        floor = timed(lambda: one.add_(1))
+        xs, hs, cs = randn(N, 1), randn(N, hid), randn(N, hid)
+        compare("lstm_cell (main shape)", ops.lstm_cell(xs, hs, cs, *wts),
+                ref.lstm_cell_ref(xs, hs, cs, *wts), 1e-5)
         compare("lstm_cell vs torch.nn.LSTMCell", ops.lstm_cell(xs, hs, cs, *wts),
                 cell(xs, (hs, cs)), 1e-5)
+        cell_t = timed(lambda: ops.lstm_cell(xs, hs, cs, *wts))
+    records["lstm_cell"].update(launch_floor_device_ms=floor["device_ms"],
+                                launch_floor_call_ms=floor["call_ms"],
+                                cell_device_ms=cell_t["device_ms"],
+                                cell_call_ms=cell_t["call_ms"])
+    print(f"launch floor (a one-element in-place add): device ms {floor['device_ms']:.4f}, "
+          f"call ms {floor['call_ms']:.4f}", flush=True)
+    print(f"lstm_cell, the per-step cell at ({N}, 1, {hid}): device ms "
+          f"{cell_t['device_ms']:.4f}, call ms {cell_t['call_ms']:.4f}", flush=True)
     for b_, i_, h_ in [(100, 3, 8), (7, 2, 16)]:
         args = (randn(b_, i_), randn(b_, h_), randn(b_, h_), randn(4 * h_, i_),
                 randn(4 * h_, h_), randn(4 * h_))
         compare(f"lstm_cell {(b_, i_, h_)}", ops.lstm_cell(*args), ref.lstm_cell_ref(*args),
                 1e-5)
+    # the window at ragged shapes (T, B, I, H, O), weights at init_lstm's
+    # 1/sqrt(H) scale: one step, 256 steps, 2,048 rows, xs staged in several
+    # chunks, every register bucket, groups with idle lanes, the
+    # shared-memory path (H > 8) with O = 4H
+    for shape in [(1, N, 1, 4, 1), (256, N, 1, 4, 1), (32, 2048, 1, 4, 1), (10, 100, 3, 8, 2),
+                  (7, 7, 2, 16, 1), (1000, 40, 1, 4, 1), (600, 9, 3, 16, 2), (9, 13, 1, 3, 2),
+                  (4, 5, 1, 9, 36), (33, 5, 5, 32, 3)]:
+        t_, b_, i_, h_, o_ = shape
+        sc = h_ ** -0.5
+        args = (randn(t_, b_, i_), randn(4 * h_, i_) * sc, randn(4 * h_, h_) * sc,
+                randn(4 * h_) * sc, randn(o_, h_) * sc, randn(o_) * sc)
+        compare(f"lstm_sequence {shape}", ops.lstm_sequence(*args),
+                ref.lstm_sequence_ref(*args), 1e-5)
+    # the window in turns: the sequence kernel, the per-step loop, nn.LSTM and head
+    with torch.no_grad():
+        versions = {
+            "sequence kernel": lambda: ops.lstm_sequence(window, *seq_w),
+            f"per-step loop ({WINDOW} x lstm_cell, head, stack)":
+                lambda: cell_loop(window, *seq_w),
+            "torch.nn.LSTM and the head": lambda: lstm_and_head(window),
+        }
+        in_turns("lstm_cell", versions, list(versions) + list(versions)[::-1])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -376,6 +470,12 @@ def main() -> int:
     predictor = SpeedPredictor(N, load_params())
     traces = controlled_traces(N, ITERS, n_stragglers=2, seed=7)
     x_gen = torch.Generator(device=dev).manual_seed(2)
+    # the last prediction's 29-step window: the sequence kernel against
+    # the per-step loop, once, before the counters are zeroed
+    hist = torch.as_tensor(traces[:ITERS - 1], dtype=torch.float32, device=dev)
+    compare(f"predictor on the {ITERS - 1}-step trace window: sequence kernel vs per-step loop",
+            predict_next(predictor.params, hist),
+            cell_loop(hist[:, :, None].contiguous(), *seq_w)[-1, :, 0], 1e-5)
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_counts()
@@ -436,15 +536,18 @@ def main() -> int:
     apply_less_matvec = (statistics.median(phase_s["apply"]) * 1e3
                          - records["coded_matvec"]["device_ms"])
     print(f"apply less coded_matvec's device time: {apply_less_matvec:.4f} ms", flush=True)
-    print(f"launches on the main path: {counts}; coded_matvec by design: {designs}",
-          flush=True)
-    need = {"mds_encode": 1, "coded_matvec": ITERS, "mds_decode": ITERS, "lstm_cell": ITERS}
+    print(f"launches on the main path: {counts}; by design: {designs}", flush=True)
+    need = {"mds_encode": 1, "coded_matvec": ITERS, "mds_decode": ITERS}
     short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
     if short:
         raise RuntimeError(f"the main path did not run through every kernel: {short}")
-    if designs != {"stream": counts["coded_matvec"], "general": 0}:
+    if designs["coded_matvec"] != {"stream": counts["coded_matvec"], "general": 0}:
         raise RuntimeError(f"coded_matvec launches on the main path left the stream "
-                           f"design: {designs}")
+                           f"design: {designs['coded_matvec']}")
+    # one sequence launch per prediction with history (iteration 0 has none)
+    if designs["lstm_cell"] != {"sequence": ITERS - 1, "cell": 0}:
+        raise RuntimeError(f"the predictor did not launch the sequence kernel once per "
+                           f"prediction with history: {designs['lstm_cell']}")
     if counts["coded_matvec"] != ITERS or counts["mds_decode"] != ITERS:
         raise RuntimeError(f"apply launched coded_matvec {counts['coded_matvec']} and "
                            f"mds_decode {counts['mds_decode']} times in {ITERS} iterations")

@@ -5,11 +5,13 @@ iteration's speed), 4-dim hidden state, and a 1-dim linear output head
 predicting the next iteration's speed.  The model is shared across nodes
 (speeds are batched over nodes).
 
-Each LSTM step goes through ``ops.lstm_cell``: the fused CUDA kernel on a
-card, its plain version on the CPU.  The output head ``h @ w_outᵀ + b_out``
-is a plain tensor op, as in the JAX package.  Training (``train_predictor``
-and its Adam) is not ported yet: trained parameters come from the JAX
-package through :mod:`repro_torch.convert`.
+A prediction runs the whole window, every LSTM step and the output head
+``h @ w_outᵀ + b_out``, through ``ops.lstm_sequence``: one launch of the
+sequence kernel on a card (where the JAX package runs one ``lax.scan``),
+its plain version on the CPU.  :func:`lstm_cell`, one step, goes through
+``ops.lstm_cell``.  Training (``train_predictor`` and its Adam) is not
+ported yet: trained parameters come from the JAX package through
+:mod:`repro_torch.convert`.
 """
 
 from __future__ import annotations
@@ -74,15 +76,8 @@ def lstm_apply(params: LSTMPredictor, xs: torch.Tensor) -> torch.Tensor:
     xs: (T, batch, input_dim) -> (T, batch, output_dim); the prediction at
     step t is the model's estimate of x_{t+1}.
     """
-    batch = xs.shape[1]
-    hdim = params.w_hh.shape[1]
-    h = xs.new_zeros((batch, hdim))
-    c = xs.new_zeros((batch, hdim))
-    ys = []
-    for x in xs:
-        h, c = lstm_cell(params, x.contiguous(), (h, c))
-        ys.append(h @ params.w_out.T + params.b_out)
-    return torch.stack(ys)
+    return ops.lstm_sequence(xs.contiguous(), params.w_ih, params.w_hh, params.b,
+                             params.w_out, params.b_out)
 
 
 @torch.no_grad()
@@ -143,5 +138,9 @@ class SpeedPredictor:
         if self.params is None:
             return self.history[-1]
         hist = np.stack(self.history[-self.window:], axis=0)
-        hist_t = torch.as_tensor(hist, dtype=torch.float32).to(self.device)
+        # the window in one copy, from pinned memory so that it is async
+        host = torch.empty(hist.shape, dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        host.numpy()[...] = hist
+        hist_t = host.to(self.device, non_blocking=True)
         return predict_next(self.params, hist_t).cpu().numpy()

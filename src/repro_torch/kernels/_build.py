@@ -53,6 +53,7 @@ _SIGNATURES = {
     "s2c2_mds_encode": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
     "s2c2_mds_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     "s2c2_lstm_cell": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "s2c2_lstm_sequence": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Dispatch for the four kernels: a CPU tensor takes the plain version, a
-CUDA tensor the hand-written kernel.
+"""Dispatch for the kernels: a CPU tensor takes the plain version, a CUDA
+tensor the hand-written kernel.
 
 There is no fallback between the two: tensors on a CUDA device launch the
 kernel or raise (a missing toolkit, a failed build or a refused launch all
@@ -18,7 +18,7 @@ from repro_torch.kernels import mds_decode as _dec
 from repro_torch.kernels import mds_encode as _enc
 
 __all__ = ["coded_matvec", "mds_encode", "mds_decode", "mds_decode_into", "lstm_cell",
-           "launch_counts", "design_counts", "reset_launch_counts"]
+           "lstm_sequence", "launch_counts", "design_counts", "reset_launch_counts"]
 
 _MODULES = {"coded_matvec": _cmv, "mds_encode": _enc, "mds_decode": _dec,
             "lstm_cell": _lstm}
@@ -86,17 +86,32 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     return _lstm.lstm_cell_plain(x, h, c, w_ih, w_hh, b)
 
 
+def lstm_sequence(xs: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor,
+                  w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """The LSTM over a window from h = c = 0, with the output head at every
+    step: xs (T, B, I) -> ys (T, B, O); weights as in
+    :func:`ref.lstm_sequence_ref`."""
+    if _use_kernel("lstm_sequence", xs, w_ih, w_hh, b, w_out, b_out):
+        return _lstm.lstm_sequence_cuda(xs, w_ih, w_hh, b, w_out, b_out)
+    return _lstm.lstm_sequence_plain(xs, w_ih, w_hh, b, w_out, b_out)
+
+
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
+    """Kernel launches per kernel since the last :func:`reset_launch_counts`
+    (``lstm_cell``: the cell's and the sequence's together)."""
     return {name: mod.launches for name, mod in _MODULES.items()}
 
 
-def design_counts() -> dict[str, int]:
-    """``coded_matvec``'s launches per design since the last reset."""
-    return {"stream": _cmv.launches_stream, "general": _cmv.launches_general}
+def design_counts() -> dict[str, dict[str, int]]:
+    """The launches of the kernels with two designs, per design, since the
+    last reset."""
+    return {"coded_matvec": {"stream": _cmv.launches_stream,
+                             "general": _cmv.launches_general},
+            "lstm_cell": {"sequence": _lstm.launches_sequence, "cell": _lstm.launches_cell}}
 
 
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
     _cmv.launches_stream = _cmv.launches_general = 0
+    _lstm.launches_sequence = _lstm.launches_cell = 0

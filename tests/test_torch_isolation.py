@@ -89,7 +89,8 @@ def test_cuda_tensor_without_library_raises(monkeypatch):
         raise AssertionError("a CUDA tensor reached a plain version")
 
     for mod, name in [(coded_matvec, "coded_matvec_plain"), (mds_encode, "mds_encode_plain"),
-                      (mds_decode, "mds_decode_plain"), (lstm_cell, "lstm_cell_plain")]:
+                      (mds_decode, "mds_decode_plain"), (lstm_cell, "lstm_cell_plain"),
+                      (lstm_cell, "lstm_sequence_plain")]:
         monkeypatch.setattr(mod, name, forbidden)
     with FakeTensorMode(allow_non_fake_inputs=True):
         cuda = torch.device("cuda")
@@ -103,11 +104,15 @@ def test_cuda_tensor_without_library_raises(monkeypatch):
                                    torch.empty(3, 4, 10, device=cuda)),
             lambda: ops.lstm_cell(*(torch.empty(s, device=cuda) for s in
                                     [(5, 1), (5, 4), (5, 4), (16, 1), (16, 4), (16,)])),
+            lambda: ops.lstm_sequence(*(torch.empty(s, device=cuda) for s in
+                                        [(3, 5, 1), (16, 1), (16, 4), (16,), (1, 4), (1,)])),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 call()
     assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
+    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "general": 0},
+                                   "lstm_cell": {"sequence": 0, "cell": 0}}
 
 
 def test_cpu_run_launches_no_kernel():
@@ -129,3 +134,5 @@ def test_cpu_run_launches_no_kernel():
         sp.observe(traces[it])
     assert ops.launch_counts() == {"coded_matvec": 0, "mds_encode": 0, "mds_decode": 0,
                                    "lstm_cell": 0}
+    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "general": 0},
+                                   "lstm_cell": {"sequence": 0, "cell": 0}}

@@ -9,7 +9,10 @@ is held against its plain version on the same tensors.
 Tolerances are the JAX kernel tests' own (``tests/test_kernels.py:23-24,
 126-129``): float32 2e-4, since the sums run in another order; bfloat16
 5e-2, since inputs and outputs round to 8 bits of mantissa; the LSTM cell
-1e-5, since it sums at most a few terms.
+1e-5, since it sums at most a few terms.  The LSTM window (``lstm_sequence``)
+keeps the cell's 1e-5 over up to 1,000 steps: its state is bounded (|h| < 1)
+and, with weights at the JAX package's ``init_lstm`` scale of 1/sqrt(H), a
+step damps the rounding of the steps before it instead of compounding it.
 """
 
 import numpy as np
@@ -32,6 +35,9 @@ DECODE_SHAPES = [(4, 3, 5, 128), (6, 7, 10, 200), (1, 2, 2, 512)]
 DECODE_INTO_SHAPES = [(4, 3, 3, 128, 12), (20, 10, 10, 30, 200), (3, 5, 7, 37, 9)]
 TABLES = ["identity", "permuted", "repeated"]
 LSTM_SHAPES = [(1, 1, 4), (12, 1, 4), (100, 3, 8), (7, 2, 16)]
+# the window: (T, B, I, H, O)
+SEQUENCE_SHAPES = [(1, 1, 1, 4, 1), (29, 12, 1, 4, 1), (32, 12, 1, 4, 1), (10, 100, 3, 8, 2),
+                   (7, 7, 2, 16, 1)]
 
 
 @pytest.fixture(scope="module")
@@ -230,6 +236,61 @@ class TestLSTMCell:
             lstm_cell.lstm_cell_cuda(*(torch.zeros(s) for s in shapes))
 
 
+_SEQ_OK = [(3, 2, 1), (16, 1), (16, 4), (16,), (1, 4), (1,)]   # T = 3, B = 2, I = 1, H = 4, O = 1
+
+
+def _seq_shapes(**changed):
+    names = ["xs", "w_ih", "w_hh", "b", "w_out", "b_out"]
+    return [changed.get(n, s) for n, s in zip(names, _SEQ_OK)]
+
+
+class TestLSTMSequence:
+    def test_empty_window(self, monkeypatch):
+        """T = 0 gives an empty ys; the CUDA wrapper launches nothing for it."""
+        from repro_torch.kernels import _build, lstm_cell
+
+        def forbidden(name):
+            raise AssertionError(f"{name} reached for an empty window")
+        monkeypatch.setattr(_build, "kernel", forbidden)
+        args = [torch.zeros(s) for s in _seq_shapes(xs=(0, 5, 1))]
+        ops.reset_launch_counts()
+        for fn in (ops.lstm_sequence, lstm_cell.lstm_sequence_cuda):
+            ys = fn(*args)
+            assert ys.shape == (0, 5, 1) and ys.dtype == torch.float32
+        assert ops.launch_counts()["lstm_cell"] == 0
+
+    @pytest.mark.parametrize("changed", [
+        dict(xs=(3, 2, 2)),                    # xs: another input width than w_ih
+        dict(w_ih=(12, 1)),                    # w_ih: another gate width
+        dict(w_hh=(12, 4)),                    # w_hh: another gate width than its H
+        dict(b=(15,)),                         # b: another gate width
+        dict(w_out=(1, 3)),                    # w_out: another hidden width
+        dict(b_out=(2,)),                      # b_out: another output width
+    ])
+    def test_cuda_wrapper_refuses_mismatched_shapes(self, monkeypatch, changed):
+        """The kernel indexes every operand by xs's (T, B, I), w_hh's H and
+        w_out's O, so the wrapper refuses any other shape before it reaches
+        the library."""
+        from repro_torch.kernels import _build, lstm_cell
+
+        def forbidden(name):
+            raise AssertionError(f"{name} reached with mismatched shapes")
+        monkeypatch.setattr(_build, "kernel", forbidden)
+        with pytest.raises(ValueError, match="do not make one LSTM sequence"):
+            lstm_cell.lstm_sequence_cuda(*(torch.zeros(s) for s in _seq_shapes(**changed)))
+
+    @pytest.mark.parametrize("i,h,o", [(1, 33, 1), (17, 4, 1), (1, 4, 17)])
+    def test_cuda_wrapper_refuses_what_its_registers_cannot_hold(self, monkeypatch, i, h, o):
+        from repro_torch.kernels import _build, lstm_cell
+
+        def forbidden(name):
+            raise AssertionError(f"{name} reached with H = {h}, I = {i}, O = {o}")
+        monkeypatch.setattr(_build, "kernel", forbidden)
+        shapes = [(3, 2, i), (4 * h, i), (4 * h, h), (4 * h,), (o, h), (o,)]
+        with pytest.raises(ValueError, match="keeps a gate row in registers"):
+            lstm_cell.lstm_sequence_cuda(*(torch.zeros(s) for s in shapes))
+
+
 class TestDispatch:
     def test_ref_names_are_the_plain_versions(self):
         from repro_torch.kernels import coded_matvec, lstm_cell, mds_decode, mds_encode
@@ -237,6 +298,7 @@ class TestDispatch:
         assert ref.mds_encode_ref is mds_encode.mds_encode_plain
         assert ref.mds_decode_ref is mds_decode.mds_decode_plain
         assert ref.lstm_cell_ref is lstm_cell.lstm_cell_plain
+        assert ref.lstm_sequence_ref is lstm_cell.lstm_sequence_plain
 
     def test_other_devices_raise(self):
         w = torch.empty(2, 3, 3, device="meta")
@@ -309,6 +371,39 @@ def test_cuda_lstm_cell(cuda, b, i, h):
     np.testing.assert_allclose(gc.cpu().numpy(), wc.cpu().numpy(), **LSTM_TOL)
 
 
+# the window on the card, beyond SEQUENCE_SHAPES: T = 256; B = 2,048 (128
+# blocks); xs staged in several 16 kB chunks (T = 1,000 over 16 rows a block;
+# T = 600 over 4 rows of I = 3 at H = 16); H = 1, 3 and 6 (groups of 4, 16
+# and 32 lanes, some idle); H = 9 (the shared-memory path, 7 rows of 36
+# threads, O = 4H); H = 32 with I = 5 (the largest buckets)
+SEQUENCE_CUDA_SHAPES = SEQUENCE_SHAPES + [
+    (256, 12, 1, 4, 1), (32, 2048, 1, 4, 1), (1000, 40, 1, 4, 1), (600, 9, 3, 16, 2),
+    (5, 3, 1, 1, 1), (9, 13, 1, 3, 2), (20, 70, 4, 6, 5), (4, 5, 1, 9, 36), (33, 5, 5, 32, 3)]
+
+
+def _sequence_args(gen, steps, b, i, h, o):
+    """A window of inputs and weights at ``init_lstm``'s 1/sqrt(H) scale."""
+    scale = h ** -0.5
+    return [_cuda_rand(gen, (steps, b, i)), _cuda_rand(gen, (4 * h, i)) * scale,
+            _cuda_rand(gen, (4 * h, h)) * scale, _cuda_rand(gen, (4 * h,)) * scale,
+            _cuda_rand(gen, (o, h)) * scale, _cuda_rand(gen, (o,)) * scale]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,b,i,h,o", SEQUENCE_CUDA_SHAPES)
+def test_cuda_lstm_sequence(cuda, steps, b, i, h, o):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = _sequence_args(gen, steps, b, i, h, o)
+    ops.reset_launch_counts()
+    got = ops.lstm_sequence(*args)
+    assert ops.design_counts()["lstm_cell"] == {"sequence": 1, "cell": 0}
+    want = ref.lstm_sequence_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (steps, b, o)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **LSTM_TOL)
+    ops.reset_launch_counts()
+
+
 # the stream design: (blocks in a, assigned nb, br, d); nb = 0, 1, fewer
 # than the grid's 132 blocks and many times it, br not a multiple of the
 # tile's rows (64 KB tiles: 8 rows at d = 2,048 float32, 4 at 4,096, 16 at
@@ -328,7 +423,7 @@ def test_cuda_coded_matvec_stream(cuda, dtype, n_blocks, nb, br, d):
     ids = torch.randint(0, n_blocks, (nb,), generator=gen, device=cuda, dtype=torch.int32)
     ops.reset_launch_counts()
     got = cmv.coded_matvec_stream(a, x, ids, br)
-    assert ops.design_counts() == {"stream": int(nb > 0), "general": 0}
+    assert ops.design_counts()["coded_matvec"] == {"stream": int(nb > 0), "general": 0}
     want = ref.coded_matvec_ref(a, x, ids, br)
     torch.cuda.synchronize()
     assert got.shape == (nb, br) and got.dtype == a.dtype
@@ -386,8 +481,8 @@ def test_cuda_coded_matvec_design_follows_shape(cuda):
             ops.reset_launch_counts()
             got = ops.coded_matvec(a, x, ids, 8)
             assert cmv.takes_stream(a, x) == (design == "stream")
-            assert ops.design_counts() == {"stream": int(design == "stream"),
-                                           "general": int(design == "general")}
+            assert ops.design_counts()["coded_matvec"] == {
+                "stream": int(design == "stream"), "general": int(design == "general")}
             np.testing.assert_allclose(_np(got.cpu()),
                                        _np(ref.coded_matvec_ref(a, x, ids, 8).cpu()),
                                        **TOL["float32" if a.dtype == torch.float32

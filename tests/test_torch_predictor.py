@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cuda import cuda  # noqa: F401  (fixture)
 from repro.core import predictor as jpred
 from repro_torch import convert
 from repro_torch.core import predictor
+from repro_torch.kernels import ops
 from repro_torch.core.s2c2 import general_allocation
 from repro_torch.core.traces import controlled_traces, sample_traces, TraceConfig
 
@@ -71,6 +73,37 @@ def test_predict_next(params_np):
     got = predictor.predict_next(_port(params_np), torch.from_numpy(hist))
     want = jpred.predict_next(_jax(params_np), jnp.asarray(hist))
     assert got.shape == (12,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# (T, B, I, H, O): a one-step window, the main path's 29- and 32-step
+# windows over its 12 workers, and wider cells; the committed params fit
+# only the paper's (I, H, O) = (1, 4, 1)
+SEQUENCE_SHAPES = [(1, 1, 1, 4, 1), (29, 12, 1, 4, 1), (32, 12, 1, 4, 1), (10, 100, 3, 8, 2),
+                   (7, 7, 2, 16, 1)]
+SEQUENCE_CASES = [(kind, shape) for shape in SEQUENCE_SHAPES
+                  for kind in ("init_lstm", "committed")
+                  if kind == "init_lstm" or shape[2:] == (1, 4, 1)]
+
+
+@pytest.mark.parametrize("kind,shape", SEQUENCE_CASES)
+def test_lstm_sequence_matches_jax_lstm_apply(kind, shape):
+    """``ops.lstm_sequence`` (the plain version, on the CPU) against the JAX
+    package's ``lstm_apply``, the ``lax.scan`` it replaces."""
+    steps, bsz, i, h, o = shape
+    if kind == "init_lstm":
+        cfg = jpred.LSTMParams(hidden=h, input_dim=i, output_dim=o)
+        p = {k: np.asarray(v) for k, v in jpred.init_lstm(cfg, jax.random.PRNGKey(0)).items()}
+    else:
+        p = convert.load_params_numpy()
+    model = _port(p)
+    xs = np.random.default_rng(steps * 100 + bsz).uniform(0.1, 1.0, (steps, bsz, i))
+    xs = xs.astype(np.float32)
+    with torch.no_grad():
+        got = ops.lstm_sequence(torch.from_numpy(xs), model.w_ih, model.w_hh, model.b,
+                                model.w_out, model.b_out)
+    want = jpred.lstm_apply(_jax(p), jnp.asarray(xs))
+    assert got.shape == (steps, bsz, o)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -130,3 +163,20 @@ def test_committed_params_steer_the_allocation():
         sp.observe(traces[it])
     count = general_allocation(sp.predict(), 10, 20).count
     assert count[-2:].max() <= 10 and count[:-2].min() >= 16
+
+
+@pytest.mark.cuda
+def test_cuda_speed_predictor_matches_cpu(cuda):
+    """The main path's predictor on the card: one sequence launch per
+    prediction with history, the same speeds as on the CPU."""
+    traces = controlled_traces(12, 30, n_stragglers=2, seed=7)
+    on_card = predictor.SpeedPredictor(12, convert.load_params(device=cuda), device=cuda)
+    on_cpu = predictor.SpeedPredictor(12, convert.load_params(device="cpu"), device="cpu")
+    ops.reset_launch_counts()
+    for it in range(30):
+        got = on_card.predict()
+        np.testing.assert_allclose(got, on_cpu.predict(), **TOL)
+        on_card.observe(traces[it])
+        on_cpu.observe(traces[it])
+    assert ops.design_counts()["lstm_cell"] == {"sequence": 29, "cell": 0}
+    ops.reset_launch_counts()
