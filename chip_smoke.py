@@ -38,19 +38,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launched exactly once per iteration, and the predictor launched the
    sequence kernel once per prediction with history (29) and the per-step
    cell never.  Before it, the last prediction's window is run both through
-   the sequence kernel and through the per-step loop, which must agree.
+   the sequence kernel and through the per-step loop, which must agree;
+5. the cluster engine (``repro_torch.cluster``) on the card: 12 worker
+   threads on the in-process transport compute their chunks through the
+   CUDA ``KernelBackend`` (shards resident on the card) and the master
+   decodes through ``mds_decode`` (``decode_with_kernel``), planning with
+   the LSTM on the card, under the trace's speeds.  A 600,000 × 2,048
+   tenant, C = 20, is encoded on the host in float64 as the reference does;
+   then 20 ``GeneralS2C2`` matvec rounds, one ``matmul`` round at B = 8
+   and one at B = 20, each within 1e-3 of a float64 product.  The counters
+   are zeroed before each group of rounds and read after it, once every
+   worker is idle.  It fails unless every B = 1 chunk launch took the
+   stream design, ``coded_matvec`` launched once per chunk computed and
+   column group of at most 16, ``mds_decode`` once per round, and the
+   predictor's sequence kernel once per round with history (its cell
+   never).  At a chunk's shape it holds each ``coded_matvec`` launch the
+   backend makes (B = 1, 8 and 20) and the round's ``mds_decode`` against
+   their plain versions on the same card tensors.  It prints the host
+   encode's time and resident memory, the makespans, ``compute_chunk``'s
+   ``call_ms``, the decode's times, ``calibrate_row_cost`` and the
+   backend's caches.  Then a small pool of spawned worker processes
+   (``SocketTransport``, 4 workers, each building the CUDA backend on the
+   card from the library built here) runs 3 exact rounds.
 
 The last lines are the in-turn times as JSON, the per-kernel record as JSON
 (``ms``, ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the
-per-call times) and the device line.
+per-call times; ``launches`` the main path's, ``cluster_launches`` the
+cluster phase's) and the device line.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -61,8 +85,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # (benchmarks/fig_overheads.py: (n, k) = (12, 10), D = 600,000; C = 20 chunks
 # as in examples/pagerank.py), with d = 2,048 float32 columns
 N, K, CHUNKS, ROWS, COLS, ITERS = 12, 10, 20, 600_000, 2_048, 30
+# the cluster phase: the same code, D, C and d
+CL_ROUNDS, CL_ROW_COST, CL_WIDTHS = 20, 1e-5, (8, 20)
 WINDOW = 32                     # the predictor's window (SpeedPredictor's default)
 REL_ERR_LIMIT = 1e-3
+F32_TOL = 2e-4                  # a float32 kernel against its plain version (rtol = atol)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 REPS = 20
@@ -86,6 +113,236 @@ def card_line() -> str:
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def host_peak(fn):
+    """``fn()``, with the process's resident memory in GB before the call
+    and at its peak during it (sampled every 5 ms)."""
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss_gb() -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page / 1e9
+
+    start, peak, done = rss_gb(), [0.0], threading.Event()
+
+    def sample():
+        while not done.wait(0.005):
+            peak[0] = max(peak[0], rss_gb())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        sampler.join()
+    return out, (start, max(peak[0], rss_gb()))
+
+
+def wait_idle(eng, timeout: float = 120.0) -> None:
+    """Until every worker of an in-process engine has nothing queued or
+    running (a round returns while cancelled stragglers finish a chunk)."""
+    deadline = time.monotonic() + timeout
+    while not all(w.idle() for w in eng.workers):
+        if time.monotonic() > deadline:
+            raise RuntimeError("cluster: workers still busy after the rounds")
+        time.sleep(0.005)
+
+
+def cluster_phase(dev, call_ms, timed, compare, rows: int) -> dict:
+    """Phase 5: the cluster engine on the card, over a ``rows`` × d tenant.
+    Returns the launches of its in-process rounds per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import (ClusterConfig, CodedExecutionEngine, NoSlowdown,
+                                     SocketTransport, TraceInjector, kernel_backend)
+    from repro_torch.cluster.transport import _compute_spec
+    from repro_torch.convert import load_params
+    from repro_torch.core.predictor import SpeedPredictor
+    from repro_torch.core.simulation import calibrate_row_cost
+    from repro_torch.core.strategies import GeneralS2C2
+    from repro_torch.core.traces import controlled_traces
+    from repro_torch.kernels import coded_matvec as cmv
+    from repro_torch.kernels import mds_decode as dec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.coded_matvec import MAX_NVEC
+
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((rows, COLS), dtype=np.float32)
+    a64 = a.astype(np.float64)
+    backend = kernel_backend()
+    predictor = SpeedPredictor(N, load_params())
+    traces = controlled_traces(N, CL_ROUNDS, n_stragglers=2, seed=7)
+    eng = CodedExecutionEngine(
+        ClusterConfig(n_workers=N, k=K, row_cost=CL_ROW_COST, decode_with_kernel=True),
+        injector=TraceInjector(traces), compute=backend, predictor=predictor)
+    totals: dict = {}
+    try:
+        t0 = time.perf_counter()
+        data, rss = host_peak(lambda: eng.load_matrix(a, chunks=CHUNKS))
+        encode_s = time.perf_counter() - t0
+        rpc = data.rows_per_chunk
+        strategy = GeneralS2C2(N, K, rows, chunks=CHUNKS)
+        print(f"cluster: tenant {rows} x {COLS}, ({N}, {K}) code, C = {CHUNKS} "
+              f"(rpc {rpc}); host float64 encode and install {encode_s:.2f} s, host resident memory "
+              f"{rss[0]:.2f} GB before it and {rss[1]:.2f} GB at its peak; coded state "
+              f"on the card {N * data.partitions[0].size * 4 / 1e9:.2f} GB", flush=True)
+
+        def run_group(label, widths):
+            """Rounds at the given RHS widths (None: matvec), checked, with
+            their launches added to ``totals``."""
+            wait_idle(eng)
+            ops.reset_launch_counts()
+            before = backend.cache_info()
+            makespans, planned, walls, decodes = [], [], [], []
+            worst, with_history = 0.0, 0
+            for width in widths:
+                x = rng.standard_normal(COLS if width is None else (COLS, width))
+                with_history += bool(predictor.history)
+                t0 = time.perf_counter()
+                out = (eng.matvec(data, x, strategy) if width is None
+                       else eng.matmul(data, x, strategy))
+                walls.append(time.perf_counter() - t0)
+                makespans.append(out.metrics.makespan)
+                planned.append(out.metrics.planned_makespan)
+                decodes.append(out.metrics.decode_time)
+                want = a64 @ x
+                if out.y.shape != want.shape or not np.isfinite(out.y).all():
+                    raise RuntimeError(f"cluster {label}: y has shape {out.y.shape} or "
+                                       "non-finite values")
+                err = float(np.abs(out.y - want).max() / np.abs(want).max())
+                if err > REL_ERR_LIMIT:
+                    raise RuntimeError(f"cluster {label}: relative error {err:.3e} > "
+                                       f"{REL_ERR_LIMIT}")
+                worst = max(worst, err)
+            wait_idle(eng)
+            counts, designs = ops.launch_counts(), ops.design_counts()
+            info = backend.cache_info()
+            chunks = info["x_hits"] + info["x_misses"] - before["x_hits"] - before["x_misses"]
+            groups = 1 if widths[0] is None else -(-widths[0] // MAX_NVEC)
+            ms = sorted(m * 1e3 for m in makespans)
+            print(f"cluster {label}: {len(widths)} round(s); makespan ms median "
+                  f"{statistics.median(ms):.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}); planned "
+                  f"ms median {statistics.median(planned) * 1e3:.3f}; host wall ms median "
+                  f"{statistics.median(walls) * 1e3:.3f}; decode ms median "
+                  f"{statistics.median(decodes) * 1e3:.3f}; worst relative error {worst:.3e}; "
+                  f"chunks computed {chunks}; launches {counts}; by design {designs}",
+                  flush=True)
+            if counts["coded_matvec"] != chunks * groups:
+                raise RuntimeError(f"cluster {label}: {counts['coded_matvec']} coded_matvec "
+                                   f"launches for {chunks} chunks of {groups} column group(s)")
+            if widths[0] is None and designs["coded_matvec"]["general"]:
+                raise RuntimeError(f"cluster {label}: B = 1 chunk launches left the stream "
+                                   f"design: {designs['coded_matvec']}")
+            if counts["mds_decode"] != len(widths):
+                raise RuntimeError(f"cluster {label}: mds_decode launched "
+                                   f"{counts['mds_decode']} times in {len(widths)} rounds")
+            if designs["lstm_cell"] != {"sequence": with_history, "cell": 0}:
+                raise RuntimeError(f"cluster {label}: the predictor's launches "
+                                   f"{designs['lstm_cell']}, not one sequence launch for "
+                                   f"each of {with_history} rounds with history")
+            for name, v in counts.items():
+                totals[name] = totals.get(name, 0) + v
+
+        run_group("matvec rounds", [None] * CL_ROUNDS)
+        for width in CL_WIDTHS:
+            run_group(f"matmul round, B = {width}", [width])
+
+        # a chunk's compute at its shape, beside the time the worker stretches
+        # it to at speed 1.0; and its launches, each held against the plain
+        # version on the same card tensors: the view of a systematic and of
+        # a parity shard with block id 0, one launch per column group, as
+        # the backend makes them
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        shards = [torch.as_tensor(data.partitions[w], dtype=torch.float32, device=dev)
+                  for w in (0, N - 1)]
+        for width in (None,) + CL_WIDTHS:
+            x = rng.standard_normal(COLS if width is None else (COLS, width))
+            t = call_ms(lambda: backend.compute_chunk(0, data.shard_id, data.partitions[0],
+                                                      rpc, 2 * rpc, x))
+            x_d = torch.as_tensor(x, dtype=torch.float32, device=dev)
+            groups = ([x_d] if width is None else
+                      [x_d[:, c:c + MAX_NVEC].contiguous() for c in range(0, width, MAX_NVEC)])
+            err = 0.0
+            for shard in shards:
+                view = shard[rpc:2 * rpc]
+                for xg in groups:
+                    err = max(err, compare(
+                        f"cluster coded_matvec ({rpc}, {COLS}) x {tuple(xg.shape)}",
+                        ops.coded_matvec(view, xg, zero, rpc),
+                        cmv.coded_matvec_plain(view, xg, zero, rpc), F32_TOL))
+            launch = timed(lambda: [ops.coded_matvec(shards[0][rpc:2 * rpc], xg, zero, rpc)
+                                    for xg in groups])
+            print(f"cluster compute_chunk ({rpc}, {COLS}), B = {width or 1}: call ms {t:.4f} "
+                  f"against {rpc * (width or 1) * CL_ROW_COST * 1e3:.1f} ms of a chunk at "
+                  f"speed 1.0; its {len(groups)} coded_matvec launch(es): device ms "
+                  f"{launch['device_ms']:.4f}, call ms {launch['call_ms']:.4f}; against "
+                  f"the plain version max abs err {err:.3e} (tol {F32_TOL})", flush=True)
+        del shards
+        # the decode of one round at (C, k, k) x rpc·B: the kernel alone on
+        # the card, held against the plain version on the same tensors, and
+        # the whole host decode (upload, launch, download)
+        cov_ids = np.stack([np.sort(rng.choice(N, K, replace=False)) for _ in range(CHUNKS)])
+        dms = data.code.decode_submats(cov_ids)
+        w_d = torch.as_tensor(dms, dtype=torch.float32, device=dev)
+        table = torch.arange(CHUNKS * K, dtype=torch.int32, device=dev).view(CHUNKS, K)
+        for width in (None,) + CL_WIDTHS:
+            cols = rpc * (width or 1)
+            y_parts = rng.standard_normal((CHUNKS, K, cols))
+            p_d = torch.as_tensor(y_parts.reshape(CHUNKS * K, cols), dtype=torch.float32,
+                                  device=dev)
+            buf = torch.empty((K, CHUNKS, cols), device=dev)
+            err = compare(f"cluster mds_decode ({CHUNKS}, {K}, {K}) x {cols}",
+                          ops.mds_decode_into(w_d, p_d, table, buf.transpose(0, 1)),
+                          dec.mds_decode_into_plain(w_d, p_d, table,
+                                                    torch.empty_like(buf).transpose(0, 1)),
+                          F32_TOL)
+            kern = timed(lambda: ops.mds_decode_into(w_d, p_d, table, buf.transpose(0, 1)))
+            host = call_ms(lambda: data.decode_compact(
+                dms, y_parts if width is None else y_parts.reshape(CHUNKS, K, rpc, width),
+                use_kernel=True))
+            print(f"cluster decode ({CHUNKS}, {K}, {K}) x {cols}: mds_decode device ms "
+                  f"{kern['device_ms']:.4f}, call ms {kern['call_ms']:.4f}; decode_compact "
+                  f"(upload, launch, download) call ms {host:.4f}; against the plain version "
+                  f"max abs err {err:.3e} (tol {F32_TOL})", flush=True)
+        print(f"cluster calibrate_row_cost on the card: {calibrate_row_cost():.3e} s a row "
+              f"(the engine's row_cost: {CL_ROW_COST:.0e})", flush=True)
+        print(f"cluster backend caches: {backend.cache_info()}", flush=True)
+    finally:
+        eng.shutdown()
+    del backend
+    torch.cuda.empty_cache()
+
+    # spawned worker processes, each on the card (the library is built)
+    n, k, chunks, rows, d = 4, 2, 4, 4096, 256
+    a_p = rng.standard_normal((rows, d)).astype(np.float32).astype(np.float64)
+    backend = kernel_backend()
+    spec = _compute_spec(backend)
+    if spec != f"kernel:{dev.type}:{torch.cuda.current_device()}":
+        raise RuntimeError(f"cluster processes: the backend travels as {spec!r}")
+    t0 = time.perf_counter()
+    eng = CodedExecutionEngine(
+        ClusterConfig(n_workers=n, k=k, row_cost=1e-6, starvation_timeout=60.0),
+        NoSlowdown(), compute=backend, transport=SocketTransport(connect_timeout=120.0))
+    try:
+        start_s = time.perf_counter() - t0
+        data = eng.load_matrix(a_p, chunks=chunks)
+        worst = 0.0
+        for _ in range(3):
+            x = rng.standard_normal(d)
+            y = eng.matvec(data, x, GeneralS2C2(n, k, rows, chunks=chunks)).y
+            want = a_p @ x
+            err = float(np.abs(y - want).max() / np.abs(want).max())
+            if not np.isfinite(y).all() or err > 1e-4:
+                raise RuntimeError(f"cluster processes: relative error {err:.3e} > 1e-4")
+            worst = max(worst, err)
+    finally:
+        eng.shutdown()
+    print(f"cluster processes: {n} spawned workers ({spec}) started in {start_s:.1f} s; 3 "
+          f"rounds, worst relative error {worst:.3e}", flush=True)
+    return totals
 
 
 def main() -> int:
@@ -248,7 +505,7 @@ def main() -> int:
             ys.append(h @ w_out.T + b_out)
         return torch.stack(ys)
 
-    tol = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+    tol = {torch.float32: F32_TOL, torch.bfloat16: 5e-2}
     rows_w = ROWS // K                   # rows of one coded partition
     rpc = rows_w // CHUNKS               # rows of one chunk
 
@@ -553,6 +810,15 @@ def main() -> int:
                            f"mds_decode {counts['mds_decode']} times in {ITERS} iterations")
     for name, rec in records.items():
         rec["launches"] = counts[name]
+    del a_full, coded, a64
+    torch.cuda.empty_cache()
+
+    # -- 5. the cluster engine on the card ----------------------------------
+    t0 = time.perf_counter()
+    cluster_counts = cluster_phase(dev, call_ms, timed, compare, ROWS)
+    print(f"cluster phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, rec in records.items():
+        rec["cluster_launches"] = cluster_counts.get(name, 0)
 
     print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}))

@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "device_guard"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -22,3 +24,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def device_guard(dev: torch.device):
+    """A context that makes the card ``dev`` current in the calling thread.
+
+    A kernel launches on the calling thread's current card, and a thread
+    other than the one that chose a card starts on card 0; a CPU ``dev``
+    gives a context that does nothing.
+    """
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

@@ -30,7 +30,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_ROOT", "CSRC", "SOURCES", "build", "library", "kernel", "check",
-           "stream_of", "DTYPE_CODES"]
+           "stream_of", "DTYPE_CODES", "COUNT_LOCK"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("coded_matvec.cu", "mds_encode.cu", "mds_decode.cu", "lstm_cell.cu",
@@ -57,6 +57,10 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+# guards every wrapper module's launch counters: the cluster's worker
+# threads launch kernels concurrently, and ``+=`` on a module global can
+# lose a count between its read and its write
+COUNT_LOCK = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _fns: dict[str, ctypes._CFuncPtr] = {}     # entry point name -> bound function
 

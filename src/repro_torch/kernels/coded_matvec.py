@@ -38,7 +38,7 @@ MAX_NVEC = 16
 MAX_STREAM_ROW_BYTES = 32 * 1024  # kMaxRowBytes in csrc/coded_matvec.cu
 _ROWS_PER_LAUNCH_BLOCK = 64      # kRowsPerBlock in csrc/coded_matvec.cu
 # kernel launches since the last reset (see ops.reset_launch_counts): all of
-# them, and those of each design
+# them, and those of each design; changed under _build.COUNT_LOCK
 launches = 0
 launches_stream = 0
 launches_general = 0
@@ -138,8 +138,9 @@ def _stream(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
             a.shape[0] // block_rows, nb, block_rows, a.shape[1], _build.DTYPE_CODES[a.dtype],
             _build.stream_of(a))
         _build.check(err, "coded_matvec (stream)")
-        launches += 1
-        launches_stream += 1
+        with _build.COUNT_LOCK:
+            launches += 1
+            launches_stream += 1
     return out if squeeze else out[:, :, None]
 
 
@@ -160,6 +161,7 @@ def _general(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
             rows // block_rows, nb, block_rows, d, nvec, _build.DTYPE_CODES[a.dtype],
             int(vec), _build.stream_of(a))
         _build.check(err, "coded_matvec")
-        launches += 1
-        launches_general += 1
+        with _build.COUNT_LOCK:
+            launches += 1
+            launches_general += 1
     return out[:, :, 0] if squeeze else out

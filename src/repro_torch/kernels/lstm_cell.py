@@ -33,7 +33,7 @@ __all__ = ["lstm_cell_plain", "lstm_cell_cuda", "lstm_sequence_plain", "lstm_seq
 MAX_SEQUENCE_HIDDEN = 32    # kMaxHidden in csrc/lstm_cell.cu
 MAX_SEQUENCE_INPUT = 16     # kMaxIn in csrc/lstm_cell.cu
 # kernel launches since the last reset (see ops.reset_launch_counts): all of
-# them, and those of each design
+# them, and those of each design; changed under _build.COUNT_LOCK
 launches = 0
 launches_cell = 0
 launches_sequence = 0
@@ -81,8 +81,9 @@ def lstm_cell_cuda(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                  b.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), bsz, idim, hdim,
                  _build.stream_of(x))
         _build.check(err, "lstm_cell")
-        launches += 1
-        launches_cell += 1
+        with _build.COUNT_LOCK:
+            launches += 1
+            launches_cell += 1
     return h_new, c_new
 
 
@@ -136,6 +137,7 @@ def lstm_sequence_cuda(xs: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                  w_out.data_ptr(), b_out.data_ptr(), ys.data_ptr(), steps, bsz, idim, hdim,
                  odim, _build.stream_of(xs))
         _build.check(err, "lstm_sequence")
-        launches += 1
-        launches_sequence += 1
+        with _build.COUNT_LOCK:
+            launches += 1
+            launches_sequence += 1
     return ys

@@ -33,7 +33,9 @@ __all__ = ["mds_decode_plain", "mds_decode_cuda", "mds_decode_into_plain",
            "mds_decode_into_cuda", "MAX_KM"]
 
 MAX_KM = 32                     # kMaxKM in csrc/mds_decode.cu
-launches = 0        # kernel launches since the last reset (see ops.reset_launch_counts)
+# kernel launches since the last reset (see ops.reset_launch_counts); changed
+# under _build.COUNT_LOCK
+launches = 0
 
 
 def mds_decode_plain(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -68,7 +70,8 @@ def _launch(w: torch.Tensor, parts: torch.Tensor, table: torch.Tensor | None,
             out.data_ptr(), chunks, k, m, r, n_parts, r, stride_c, stride_i,
             _build.stream_of(parts))
         _build.check(err, "mds_decode")
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
 
 
 def mds_decode_cuda(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@ from repro_torch.kernels import _build
 __all__ = ["mds_encode_plain", "mds_encode_cuda", "MAX_N", "MAX_K"]
 
 MAX_N, MAX_K = 64, 32           # kMaxN, kMaxK in csrc/mds_encode.cu
-launches = 0        # kernel launches since the last reset (see ops.reset_launch_counts)
+# kernel launches since the last reset (see ops.reset_launch_counts); changed
+# under _build.COUNT_LOCK
+launches = 0
 
 
 def mds_encode_plain(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -64,5 +66,6 @@ def mds_encode_cuda(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
             g32.data_ptr(), blocks.data_ptr(), out.data_ptr(), n, k, plane,
             _build.DTYPE_CODES[blocks.dtype], int(vec), sms, _build.stream_of(blocks))
         _build.check(err, "mds_encode")
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
     return out

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import coded_matvec as _cmv
 from repro_torch.kernels import lstm_cell as _lstm
 from repro_torch.kernels import mds_decode as _dec
@@ -99,19 +100,23 @@ def lstm_sequence(xs: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b: t
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`
     (``lstm_cell``: the cell's and the sequence's together)."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    with _build.COUNT_LOCK:
+        return {name: mod.launches for name, mod in _MODULES.items()}
 
 
 def design_counts() -> dict[str, dict[str, int]]:
     """The launches of the kernels with two designs, per design, since the
     last reset."""
-    return {"coded_matvec": {"stream": _cmv.launches_stream,
-                             "general": _cmv.launches_general},
-            "lstm_cell": {"sequence": _lstm.launches_sequence, "cell": _lstm.launches_cell}}
+    with _build.COUNT_LOCK:
+        return {"coded_matvec": {"stream": _cmv.launches_stream,
+                                 "general": _cmv.launches_general},
+                "lstm_cell": {"sequence": _lstm.launches_sequence,
+                              "cell": _lstm.launches_cell}}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
-    _cmv.launches_stream = _cmv.launches_general = 0
-    _lstm.launches_sequence = _lstm.launches_cell = 0
+    with _build.COUNT_LOCK:
+        for mod in _MODULES.values():
+            mod.launches = 0
+        _cmv.launches_stream = _cmv.launches_general = 0
+        _lstm.launches_sequence = _lstm.launches_cell = 0

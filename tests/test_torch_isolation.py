@@ -65,12 +65,17 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
+    from repro_torch.cluster import ClusterConfig, CodedExecutionEngine, NoSlowdown
+    from repro_torch.cluster.worker import Worker, kernel_backend
     from repro_torch.convert import load_params
     from repro_torch.core.coded_matmul import CodedMatvec
     from repro_torch.core.coding import MDSCode
     from repro_torch.core.predictor import SpeedPredictor
+    from repro_torch.core.simulation import calibrate_row_cost
     for make in (lambda: CodedMatvec(MDSCode(6, 4), 12), lambda: SpeedPredictor(6),
-                 load_params):
+                 load_params, kernel_backend, calibrate_row_cost,
+                 lambda: CodedExecutionEngine(ClusterConfig(n_workers=3, k=2), NoSlowdown()),
+                 lambda: Worker(0, None, NoSlowdown())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 
