@@ -8,7 +8,8 @@ one CUDA device; the kernels are built into ``build/kernels/`` first):
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. print the card's name and power limit, build the four kernels;
+1. print the card's name and power limit, build the four kernels, and
+   print the registers and spill stores ``-Xptxas -v`` gives for each;
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones, and time kernel, plain version and
    one PyTorch library call two ways, with CUDA events:
@@ -52,9 +53,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    stream design, ``coded_matvec`` launched once per chunk computed and
    column group of at most 16, ``mds_decode`` once per round, and the
    predictor's sequence kernel once per round with history (its cell
-   never).  At a chunk's shape it holds each ``coded_matvec`` launch the
-   backend makes (B = 1, 8 and 20) and the round's ``mds_decode`` against
-   their plain versions on the same card tensors.  It prints the host
+   never), every B = 1 chunk launch took the stream design and every
+   ``matmul`` chunk launch the multi design.  At a chunk's shape it holds
+   each ``coded_matvec`` launch the backend makes (B = 1, 8 and 20) and the
+   round's ``mds_decode`` against their plain versions on the same card
+   tensors, and times in turns (multi, ``torch.matmul``, plain and back) the
+   multi design on a chunk's view of a resident shard at B = 2, 4, 8 and 16,
+   and on the worker's whole partition (nb = 20 chunks) at B = 8, each
+   launch on the next of the shard's 20 chunks, so that none finds its rows
+   in the 50 MB L2 cache, as a round does not.  It prints the host
    encode's time and resident memory, the makespans, ``compute_chunk``'s
    ``call_ms``, the decode's times, ``calibrate_row_cost`` and the
    backend's caches.  Then a small pool of spawned worker processes
@@ -64,13 +71,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The last lines are the in-turn times as JSON, the per-kernel record as JSON
 (``ms``, ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the
 per-call times; ``launches`` the main path's, ``cluster_launches`` the
-cluster phase's) and the device line.
+cluster phase's) and the device line.  The record of ``coded_matvec``'s
+multi design, which only the cluster's ``matmul`` rounds launch, is at a
+chunk's shape at B = 8, and its ``launches`` are the cluster phase's.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -87,6 +97,7 @@ sys.path.insert(0, str(ROOT / "src"))
 N, K, CHUNKS, ROWS, COLS, ITERS = 12, 10, 20, 600_000, 2_048, 30
 # the cluster phase: the same code, D, C and d
 CL_ROUNDS, CL_ROW_COST, CL_WIDTHS = 20, 1e-5, (8, 20)
+MULTI_WIDTHS = (2, 4, 8, 16)    # coded_matvec's multi design in turns at a chunk
 WINDOW = 32                     # the predictor's window (SpeedPredictor's default)
 REL_ERR_LIMIT = 1e-3
 F32_TOL = 2e-4                  # a float32 kernel against its plain version (rtol = atol)
@@ -108,6 +119,24 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers and spill stores per kernel, from the build's ``-Xptxas -v``
+    lines: the multi design's instantiations one by one, the rest in sum."""
+    kernels = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
+                         r"Used (\d+) registers", log, re.S)
+    multi = []
+    for name, spill, regs in kernels:
+        m = re.search(r"coded_matvec_multi_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+        if m:
+            multi.append((m[1] != "f", int(m[2]), regs, spill))
+    spilled = [name for name, spill, _ in kernels if int(spill)]
+    return (f"ptxas: {len(kernels)} kernels, at most "
+            f"{max(int(regs) for _, _, regs in kernels)} registers a thread, {len(spilled)} "
+            f"with spill stores {spilled}; coded_matvec's multi design: " + "; ".join(
+                f"{'bfloat16' if bf16 else 'float32'} NV = {nv}: {regs} registers, {spill} "
+                f"bytes spilled" for bf16, nv, regs, spill in sorted(multi)))
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -150,9 +179,10 @@ def wait_idle(eng, timeout: float = 120.0) -> None:
         time.sleep(0.005)
 
 
-def cluster_phase(dev, call_ms, timed, compare, rows: int) -> dict:
+def cluster_phase(dev, call_ms, timed, compare, in_turns, rows: int) -> tuple[dict, dict]:
     """Phase 5: the cluster engine on the card, over a ``rows`` × d tenant.
-    Returns the launches of its in-process rounds per kernel."""
+    Returns the launches of its in-process rounds per kernel and the record
+    of ``coded_matvec``'s multi design."""
     import numpy as np
     import torch
 
@@ -179,6 +209,7 @@ def cluster_phase(dev, call_ms, timed, compare, rows: int) -> dict:
         ClusterConfig(n_workers=N, k=K, row_cost=CL_ROW_COST, decode_with_kernel=True),
         injector=TraceInjector(traces), compute=backend, predictor=predictor)
     totals: dict = {}
+    multi_launches = 0
     try:
         t0 = time.perf_counter()
         data, rss = host_peak(lambda: eng.load_matrix(a, chunks=CHUNKS))
@@ -233,9 +264,14 @@ def cluster_phase(dev, call_ms, timed, compare, rows: int) -> dict:
             if counts["coded_matvec"] != chunks * groups:
                 raise RuntimeError(f"cluster {label}: {counts['coded_matvec']} coded_matvec "
                                    f"launches for {chunks} chunks of {groups} column group(s)")
-            if widths[0] is None and designs["coded_matvec"]["general"]:
-                raise RuntimeError(f"cluster {label}: B = 1 chunk launches left the stream "
-                                   f"design: {designs['coded_matvec']}")
+            # every B = 1 chunk on the stream design, every B > 1 chunk on
+            # the multi design, one launch per column group
+            design = "stream" if widths[0] is None else "multi"
+            want = {name: chunks * groups * (name == design)
+                    for name in ("stream", "multi", "general")}
+            if designs["coded_matvec"] != want:
+                raise RuntimeError(f"cluster {label}: coded_matvec launches by design "
+                                   f"{designs['coded_matvec']}, not {want}")
             if counts["mds_decode"] != len(widths):
                 raise RuntimeError(f"cluster {label}: mds_decode launched "
                                    f"{counts['mds_decode']} times in {len(widths)} rounds")
@@ -245,10 +281,11 @@ def cluster_phase(dev, call_ms, timed, compare, rows: int) -> dict:
                                    f"each of {with_history} rounds with history")
             for name, v in counts.items():
                 totals[name] = totals.get(name, 0) + v
+            return designs["coded_matvec"]["multi"]
 
         run_group("matvec rounds", [None] * CL_ROUNDS)
         for width in CL_WIDTHS:
-            run_group(f"matmul round, B = {width}", [width])
+            multi_launches += run_group(f"matmul round, B = {width}", [width])
 
         # a chunk's compute at its shape, beside the time the worker stretches
         # it to at speed 1.0; and its launches, each held against the plain
@@ -280,6 +317,8 @@ def cluster_phase(dev, call_ms, timed, compare, rows: int) -> dict:
                   f"speed 1.0; its {len(groups)} coded_matvec launch(es): device ms "
                   f"{launch['device_ms']:.4f}, call ms {launch['call_ms']:.4f}; against "
                   f"the plain version max abs err {err:.3e} (tol {F32_TOL})", flush=True)
+        multi_record = multi_in_turns(shards[0], rpc, zero, compare, timed, in_turns, rng, dev)
+        multi_record.update(launches=multi_launches, cluster_launches=multi_launches)
         del shards
         # the decode of one round at (C, k, k) x rpc·B: the kernel alone on
         # the card, held against the plain version on the same tensors, and
@@ -342,7 +381,81 @@ def cluster_phase(dev, call_ms, timed, compare, rows: int) -> dict:
         eng.shutdown()
     print(f"cluster processes: {n} spawned workers ({spec}) started in {start_s:.1f} s; 3 "
           f"rounds, worst relative error {worst:.3e}", flush=True)
-    return totals
+    return totals, multi_record
+
+
+def multi_in_turns(shard, rpc, zero, compare, timed, in_turns, rng, dev) -> dict:
+    """``coded_matvec``'s multi design against ``torch.matmul`` and the plain
+    version, in turns, on a chunk's view of a resident shard (nb = 1) at each
+    B of ``MULTI_WIDTHS`` and on the whole shard (nb = 20) at B = 8, beside
+    the stream design on the same chunks at B = 1.  Each call takes the next
+    of the shard's chunks, so that its rows are not in L2.  Returns the
+    record of the chunk at B = 8."""
+    import torch
+
+    from repro_torch.kernels import coded_matvec as cmv
+
+    views = [shard[c * rpc:(c + 1) * rpc] for c in range(CHUNKS)]
+    turn = [0]
+
+    def view():
+        turn[0] = (turn[0] + 1) % CHUNKS
+        return views[turn[0]]
+
+    whole = torch.arange(CHUNKS, dtype=torch.int32, device=dev)
+    # the same chunks at B = 1 on the stream design: what one launch over a
+    # chunk's bytes costs on this card's fastest path
+    x1 = torch.as_tensor(rng.standard_normal(COLS), dtype=torch.float32, device=dev)
+    stream_b1 = timed(lambda: cmv.coded_matvec_stream(view(), x1, zero, rpc))
+    print(f"coded_matvec stream, chunk ({rpc}, {COLS}), nb = 1, B = 1, the same chunks in "
+          f"turn: device ms {stream_b1['device_ms']:.4f}, call ms {stream_b1['call_ms']:.4f}",
+          flush=True)
+    cases = [(f"chunk ({rpc}, {COLS}), nb = 1, B = {b}", b, False) for b in MULTI_WIDTHS]
+    cases.append((f"partition ({CHUNKS * rpc}, {COLS}), nb = {CHUNKS}, B = 8", 8, True))
+    record = {}
+    for label, width, full in cases:
+        x = torch.as_tensor(rng.standard_normal((COLS, width)), dtype=torch.float32,
+                            device=dev)
+        if full:
+            versions = {"multi": lambda: cmv.coded_matvec_multi(shard, x, whole, rpc),
+                        "torch.matmul": lambda: torch.matmul(shard, x),
+                        "plain": lambda: cmv.coded_matvec_plain(shard, x, whole, rpc)}
+            rows, ids = CHUNKS * rpc, CHUNKS
+            err = compare(f"coded_matvec multi, {label}", versions["multi"](),
+                          versions["plain"](), F32_TOL)
+        else:
+            versions = {"multi": lambda: cmv.coded_matvec_multi(view(), x, zero, rpc),
+                        "torch.matmul": lambda: torch.matmul(view(), x),
+                        "plain": lambda: cmv.coded_matvec_plain(view(), x, zero, rpc)}
+            rows, ids = rpc, 1
+            err = max(compare(f"coded_matvec multi, {label}, chunk {c}",
+                              cmv.coded_matvec_multi(views[c], x, zero, rpc),
+                              cmv.coded_matvec_plain(views[c], x, zero, rpc), F32_TOL)
+                      for c in (0, CHUNKS - 1))
+        b_ms, b_by = bound_ms(4 * (rows * COLS + COLS * width + rows * width + ids),
+                              2 * rows * COLS * width)
+        names = list(versions)
+        times = in_turns(f"coded_matvec multi, {label}", versions, names + names[::-1])
+        best = {name: min(t["device_ms"]) for name, t in times.items()}
+        print(f"coded_matvec multi, {label}: bound {b_ms:.4f} ms ({b_by}); best device ms: "
+              + ", ".join(f"{name} {t:.4f}" for name, t in best.items())
+              + f"; multi at {b_ms / best['multi'] * 100:.1f} % of the bound; max abs err "
+              f"against the plain version {err:.3e} (rtol = atol = {F32_TOL})", flush=True)
+        if width == 8 and not full:
+            call = {name: statistics.median(t["call_ms"]) for name, t in times.items()}
+            record = dict(name="coded_matvec (multi design)", route="cuda",
+                          source="src/repro_torch/kernels/csrc/coded_matvec.cu",
+                          replaces=KERNELS["coded_matvec"], launches=0, max_abs_err=err,
+                          ms=best["multi"], plain_ms=best["plain"], bound_ms=b_ms,
+                          bound_by=b_by, library_ms=best["torch.matmul"],
+                          device_ms=best["multi"], call_ms=call["multi"],
+                          plain_device_ms=best["plain"], plain_call_ms=call["plain"],
+                          library_device_ms=best["torch.matmul"],
+                          library_call_ms=call["torch.matmul"],
+                          library=f"torch.matmul on the chunk's view, ({rpc}, {COLS}) @ "
+                                  f"({COLS}, 8)", design="multi", shape=label,
+                          stream_b1_device_ms=stream_b1["device_ms"])
+    return record
 
 
 def main() -> int:
@@ -375,6 +488,7 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s ({len(_build.SOURCES)} sources, one nvcc "
           "each, in parallel; less if build/kernels/ already held the library)", flush=True)
+    print(ptxas_summary((_build.build().parent / "build.log").read_text()), flush=True)
 
     def call_ms(fn) -> float:
         """Median of single calls, each from the host's enqueue to its end."""
@@ -481,7 +595,7 @@ def main() -> int:
 
     turns = {}
 
-    def in_turns(label, fns: dict, order: list[str]) -> None:
+    def in_turns(label, fns: dict, order: list[str]) -> dict:
         """Time several versions of one function in turns on this card."""
         times = {name: [] for name in fns}
         for name in order:
@@ -493,6 +607,7 @@ def main() -> int:
             print(f"in turns, {label}: {name}: device ms "
                   f"{', '.join(f'{v:.4f}' for v in ts['device_ms'])}; call ms "
                   f"{', '.join(f'{v:.4f}' for v in ts['call_ms'])}", flush=True)
+        return turns[label]
 
     def cell_loop(xs_, w_ih, w_hh, b, w_out, b_out):
         """The window step by step: one lstm_cell launch per step, the head
@@ -525,7 +640,7 @@ def main() -> int:
            n_bytes=4 * (nb * rpc * COLS + COLS + nb + nb * rpc),
            flops=2 * nb * rpc * COLS, tol=tol[torch.float32],
            library_name="torch.matmul on pre-gathered rows")
-    if not cmv.takes_stream(a, x):
+    if cmv.design_of(a, x) != "stream":
         raise RuntimeError("the main shape does not take coded_matvec's stream design")
     records["coded_matvec"]["design"] = "stream"
     # the two designs, each reached directly, and cuBLAS's GEMV on the rows
@@ -798,7 +913,7 @@ def main() -> int:
     short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
     if short:
         raise RuntimeError(f"the main path did not run through every kernel: {short}")
-    if designs["coded_matvec"] != {"stream": counts["coded_matvec"], "general": 0}:
+    if designs["coded_matvec"] != {"stream": counts["coded_matvec"], "multi": 0, "general": 0}:
         raise RuntimeError(f"coded_matvec launches on the main path left the stream "
                            f"design: {designs['coded_matvec']}")
     # one sequence launch per prediction with history (iteration 0 has none)
@@ -815,13 +930,13 @@ def main() -> int:
 
     # -- 5. the cluster engine on the card ----------------------------------
     t0 = time.perf_counter()
-    cluster_counts = cluster_phase(dev, call_ms, timed, compare, ROWS)
+    cluster_counts, multi_record = cluster_phase(dev, call_ms, timed, compare, in_turns, ROWS)
     print(f"cluster phase: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in records.items():
         rec["cluster_launches"] = cluster_counts.get(name, 0)
 
     print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))
-    print(json.dumps({"kernels": [records[name] for name in KERNELS]}))
+    print(json.dumps({"kernels": [records[name] for name in KERNELS] + [multi_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,7 +9,8 @@ A prediction runs the whole window, every LSTM step and the output head
 ``h @ w_outᵀ + b_out``, through ``ops.lstm_sequence``: one launch of the
 sequence kernel on a card (where the JAX package runs one ``lax.scan``),
 its plain version on the CPU.  :func:`lstm_cell`, one step, goes through
-``ops.lstm_cell``.  Training (``train_predictor`` and its Adam) is not
+``ops.lstm_cell``.  Both run with grad enabled too: on a card the kernel
+computes the forward and the backward differentiates the plain version.  Training (``train_predictor`` and its Adam) is not
 ported yet: trained parameters come from the JAX package through
 :mod:`repro_torch.convert`.
 """

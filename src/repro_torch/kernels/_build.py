@@ -20,6 +20,7 @@ without building a ``torch.cuda.Stream`` object.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -48,8 +49,9 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 # name -> argtypes; every entry point returns an int (a cudaError_t)
 _SIGNATURES = {
-    "s2c2_coded_matvec": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _P],
+    "s2c2_coded_matvec": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],
     "s2c2_coded_matvec_stream": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
+    "s2c2_coded_matvec_multi": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],
     "s2c2_mds_encode": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
     "s2c2_mds_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     "s2c2_lstm_cell": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
@@ -102,9 +104,22 @@ def build() -> Path:
             "nvcc not found: the CUDA kernels build only where the CUDA toolkit "
             "is installed; CPU tensors use the plain versions")
     out_dir.mkdir(parents=True, exist_ok=True)
+    # Processes that start at once (spawned cluster workers, test workers)
+    # build one at a time: the lock is held through compile and link, and
+    # whoever gets it after a finished build finds the library and returns.
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():
+            return lib_path
+        _compile_and_link(nvcc, out_dir, lib_path)
+    return lib_path
+
+
+def _compile_and_link(nvcc: str, out_dir: Path, lib_path: Path) -> None:
+    tag = str(os.getpid())          # this process's own objects and library
     procs = []
     for name in SOURCES:
-        obj = out_dir / (Path(name).stem + ".o")
+        obj = out_dir / f"{Path(name).stem}.{tag}.o"
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -115,7 +130,7 @@ def build() -> Path:
         if proc.returncode:
             failed.append(name)
     if not failed:
-        tmp = out_dir / f".libs2c2_kernels.{os.getpid()}.so"
+        tmp = out_dir / f".libs2c2_kernels.{tag}.so"
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -124,10 +139,11 @@ def build() -> Path:
             failed.append("link")
         else:
             os.replace(tmp, lib_path)       # atomic: a reader sees all or nothing
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
     (out_dir / "build.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(f"kernel build failed ({', '.join(failed)}):\n" + "\n".join(log))
-    return lib_path
 
 
 def library() -> ctypes.CDLL:

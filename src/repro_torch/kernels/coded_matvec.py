@@ -6,8 +6,8 @@ partition; only those blocks are read, so the cost scales with the work
 assigned.
 
 On Hopper the kernel (``csrc/coded_matvec.cu``) is bound by device-memory
-bytes: at ``nvec = 1`` each element read feeds one multiply-add.  Two designs,
-chosen by shape, never by trying one:
+bytes: each element read feeds ``nvec`` ≤ 16 multiply-adds.  Three designs,
+chosen by shape (:func:`design_of`), never by trying one:
 
 * the stream (:func:`coded_matvec_stream`), for ``nvec = 1`` with rows of a
   multiple of 16 bytes and at most ``MAX_STREAM_ROW_BYTES``, and a 16-byte
@@ -15,11 +15,15 @@ chosen by shape, never by trying one:
   keeps a ring of shared-memory tiles filled by bulk copies (TMA) while
   consumer warps reduce rows out of it, so the bytes in flight never wait
   for a reduction.  The main path takes it.
-* the general path (:func:`coded_matvec_general`) for every other shape: one
-  warp per row, 16-byte loads where d and the alignment allow, ``nvec`` up
-  to 16.
+* the multi design (:func:`coded_matvec_multi`) for every x of 2 to 16
+  columns, which the cluster's ``matmul`` chunks take: a persistent grid, x
+  staged once per block in shared memory as float32 columns, each warp
+  computing two rows at once so that a read of x feeds both.
+* the general path (:func:`coded_matvec_general`) for the ``nvec = 1``
+  shapes the stream refuses: one warp per row, 16-byte loads where d and
+  the alignment allow.
 
-Both accumulate in float32, read each assigned row once, and give NaN rows
+All accumulate in float32, read each assigned row once, and give NaN rows
 for an id outside ``a``.  Each block id is read by the kernel itself (the
 TPU kernel's scalar prefetch), and nothing is padded: no d tile, and no 128
 lanes of ``nvec`` for a single vector.
@@ -32,7 +36,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["coded_matvec_plain", "coded_matvec_cuda", "coded_matvec_stream",
-           "coded_matvec_general", "takes_stream", "MAX_NVEC", "MAX_STREAM_ROW_BYTES"]
+           "coded_matvec_multi", "coded_matvec_general", "design_of", "MAX_NVEC",
+           "MAX_STREAM_ROW_BYTES"]
 
 MAX_NVEC = 16
 MAX_STREAM_ROW_BYTES = 32 * 1024  # kMaxRowBytes in csrc/coded_matvec.cu
@@ -41,6 +46,7 @@ _ROWS_PER_LAUNCH_BLOCK = 64      # kRowsPerBlock in csrc/coded_matvec.cu
 # them, and those of each design; changed under _build.COUNT_LOCK
 launches = 0
 launches_stream = 0
+launches_multi = 0
 launches_general = 0
 
 
@@ -90,11 +96,16 @@ def _checked(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
     return x2, squeeze
 
 
-def takes_stream(a: torch.Tensor, x: torch.Tensor) -> bool:
-    """Whether :func:`coded_matvec_cuda` runs these operands on the stream design."""
+def design_of(a: torch.Tensor, x: torch.Tensor) -> str:
+    """The design :func:`coded_matvec_cuda` runs these operands on:
+    ``"stream"``, ``"multi"`` or ``"general"``, from their shapes, dtype and
+    ``a``'s alignment alone."""
+    if x.ndim == 2 and x.shape[1] >= 2:
+        return "multi"
     row_bytes = a.shape[1] * a.element_size()
-    return ((x.ndim == 1 or x.shape[1] == 1) and row_bytes % 16 == 0
-            and row_bytes <= MAX_STREAM_ROW_BYTES and a.data_ptr() % 16 == 0)
+    if row_bytes % 16 == 0 and row_bytes <= MAX_STREAM_ROW_BYTES and a.data_ptr() % 16 == 0:
+        return "stream"
+    return "general"
 
 
 def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
@@ -103,33 +114,55 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
     :func:`coded_matvec_plain`."""
     _build.library()            # without a toolkit, raise before any pointer is read
     x2, squeeze = _checked(a, x, block_ids, block_rows)
-    if takes_stream(a, x2):
-        return _stream(a, x2, block_ids, block_rows, squeeze)
-    return _general(a, x2, block_ids, block_rows, squeeze)
+    return _LAUNCH[design_of(a, x2)](a, x2, block_ids, block_rows, squeeze)
+
+
+def _design(design: str, a, x, block_ids, block_rows) -> torch.Tensor:
+    """Launch ``design``; raise for a shape that :func:`design_of` gives to
+    another design (the general path also takes the stream's shapes)."""
+    _build.library()
+    x2, squeeze = _checked(a, x, block_ids, block_rows)
+    got = design_of(a, x2)
+    if got != design and (design, got) != ("general", "stream"):
+        raise ValueError(f"the {design} design does not take a {tuple(a.shape)} {a.dtype} at "
+                         f"{a.data_ptr() % 16} past 16 with nvec={x2.shape[1]}: that is the "
+                         f"{got} design's")
+    return _LAUNCH[design](a, x2, block_ids, block_rows, squeeze)
 
 
 def coded_matvec_stream(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
                         block_rows: int) -> torch.Tensor:
-    """The persistent, TMA-fed design; raises for a shape it does not take."""
-    _build.library()
-    x2, squeeze = _checked(a, x, block_ids, block_rows)
-    if not takes_stream(a, x2):
-        raise ValueError(f"the stream design takes nvec = 1 and 16-byte-aligned rows of at "
-                         f"most {MAX_STREAM_ROW_BYTES} bytes, got a {tuple(a.shape)} "
-                         f"{a.dtype} at {a.data_ptr() % 16} past 16, nvec={x2.shape[1]}")
-    return _stream(a, x2, block_ids, block_rows, squeeze)
+    """The persistent, TMA-fed design: nvec = 1 and 16-byte-aligned rows of
+    at most ``MAX_STREAM_ROW_BYTES``; raises for any other shape."""
+    return _design("stream", a, x, block_ids, block_rows)
+
+
+def coded_matvec_multi(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
+                       block_rows: int) -> torch.Tensor:
+    """The multi-RHS design: x of shape (d, nvec), 2 <= nvec <= 16; raises
+    for any other shape."""
+    return _design("multi", a, x, block_ids, block_rows)
 
 
 def coded_matvec_general(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
                          block_rows: int) -> torch.Tensor:
-    """The warp-per-row design, for any shape the kernel takes."""
-    _build.library()
-    x2, squeeze = _checked(a, x, block_ids, block_rows)
-    return _general(a, x2, block_ids, block_rows, squeeze)
+    """The warp-per-row design, for any shape with nvec = 1."""
+    return _design("general", a, x, block_ids, block_rows)
+
+
+def _count(design: str) -> None:
+    global launches, launches_stream, launches_multi, launches_general
+    with _build.COUNT_LOCK:
+        launches += 1
+        if design == "stream":
+            launches_stream += 1
+        elif design == "multi":
+            launches_multi += 1
+        else:
+            launches_general += 1
 
 
 def _stream(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
-    global launches, launches_stream
     nb = block_ids.shape[0]
     out = torch.empty((nb, block_rows), dtype=a.dtype, device=a.device)
     if nb:
@@ -138,30 +171,40 @@ def _stream(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
             a.shape[0] // block_rows, nb, block_rows, a.shape[1], _build.DTYPE_CODES[a.dtype],
             _build.stream_of(a))
         _build.check(err, "coded_matvec (stream)")
-        with _build.COUNT_LOCK:
-            launches += 1
-            launches_stream += 1
+        _count("stream")
     return out if squeeze else out[:, :, None]
 
 
+def _multi(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
+    nb, nvec = block_ids.shape[0], x2.shape[1]
+    out = torch.empty((nb, block_rows, nvec), dtype=a.dtype, device=a.device)
+    if nb:
+        err = _build.kernel("s2c2_coded_matvec_multi")(
+            a.data_ptr(), x2.data_ptr(), block_ids.data_ptr(), out.data_ptr(),
+            a.shape[0] // block_rows, nb, block_rows, a.shape[1], nvec,
+            _build.DTYPE_CODES[a.dtype], _build.stream_of(a))
+        _build.check(err, "coded_matvec (multi)")
+        _count("multi")
+    return out
+
+
 def _general(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
-    global launches, launches_general
     rows, d = a.shape
-    nvec = x2.shape[1]
     nb = block_ids.shape[0]
     tiles = -(-block_rows // _ROWS_PER_LAUNCH_BLOCK)
     if nb * tiles >= 2**31:
         raise ValueError(f"{nb} blocks of {block_rows} rows exceed one launch's grid")
-    out = torch.empty((nb, block_rows, nvec), dtype=a.dtype, device=a.device)
+    out = torch.empty((nb, block_rows), dtype=a.dtype, device=a.device)
     if nb:
         packet = 16 // a.element_size()
         vec = (d % packet == 0 and a.data_ptr() % 16 == 0 and x2.data_ptr() % 16 == 0)
         err = _build.kernel("s2c2_coded_matvec")(
             a.data_ptr(), x2.data_ptr(), block_ids.data_ptr(), out.data_ptr(),
-            rows // block_rows, nb, block_rows, d, nvec, _build.DTYPE_CODES[a.dtype],
-            int(vec), _build.stream_of(a))
+            rows // block_rows, nb, block_rows, d, _build.DTYPE_CODES[a.dtype], int(vec),
+            _build.stream_of(a))
         _build.check(err, "coded_matvec")
-        with _build.COUNT_LOCK:
-            launches += 1
-            launches_general += 1
-    return out[:, :, 0] if squeeze else out
+        _count("general")
+    return out if squeeze else out[:, :, None]
+
+
+_LAUNCH = {"stream": _stream, "multi": _multi, "general": _general}

@@ -4,14 +4,15 @@
 // row-blocks named in `ids` are read, so a worker's cost scales with the
 // chunks it was assigned, as in the paper.
 //
-// Bound on Hopper: device-memory bytes.  At nvec = 1 every element of A that
-// is read is used for one multiply-add, far below the card's ~20 flops per
-// byte, so the kernel can at best stream the assigned rows at the HBM rate.
-// Offsets are 64-bit: the coded tensor's element count exceeds 2^31.  Two
-// designs, chosen by shape (kernels/coded_matvec.py):
+// Bound on Hopper: device-memory bytes.  Every element of A that is read is
+// used for nvec <= 16 multiply-adds: at most 8 flops a byte of float32, under
+// the card's 20 (67 TFLOP/s of float32 FMA over 3.35 TB/s), so the kernel can
+// at best stream the assigned rows at the HBM rate.  Offsets are 64-bit: the
+// coded tensor's element count exceeds 2^31.  Three designs, chosen by shape
+// (kernels/coded_matvec.py, design_of):
 //
-// * The stream (s2c2_coded_matvec_tma), for nvec = 1 with 16-byte rows of at
-//   most kMaxRowBytes and a 16-byte-aligned A.  What holds a load-per-warp
+// * The stream (s2c2_coded_matvec_stream), for nvec = 1 with 16-byte rows of
+//   at most kMaxRowBytes and a 16-byte-aligned A.  What holds a load-per-warp
 //   GEMV below the HBM rate is the bytes in flight: they sag at every row
 //   boundary, while the warp reduces, and a grid of short-lived blocks adds a
 //   tail.  So the grid is persistent (one block per SM, walking work items
@@ -28,17 +29,50 @@
 //   float32, R = 8 rows and S = 3 stages, 192 KB in flight per SM).  On the
 //   H100 a ring of much less than that waits on the latency of its copies,
 //   and of the tile sizes from 8 to 64 KB, 64 KB was the fastest.
-// * The general path (s2c2_coded_matvec) for every other shape: one warp per
-//   row, each lane issuing 16-byte read-only loads along the row (a 512-byte
-//   coalesced request per warp instruction), accumulating in float32, and
-//   the warp reducing with shuffles.  Each block covers kRowsPerBlock rows
-//   of one assigned row-block and reads that block's id itself (the TPU
-//   kernel's scalar prefetch).  The contraction dim is walked by a loop
-//   inside the warp, which stands in for the TPU's sequential d-tile grid
-//   axis and its VMEM accumulator.  A ragged d, or a row start that is not
-//   16-byte aligned, takes the scalar loads.
+// * The multi design (s2c2_coded_matvec_multi), for 2 <= nvec <= 16: the
+//   cluster's chunks of a B-column product.  Each element of A feeds nvec
+//   multiply-adds, so x must cost no more than A's bytes.  It is read from
+//   device memory once per block, kStage 16-byte loads in flight per thread
+//   (one at a time, each would wait out the latency of L2), widened to
+//   float32 and kept column-major in shared memory, NV columns of ld floats
+//   (NV in {2, 4, 8, 16}, the columns past nvec zero, so no width needs a
+//   test in the inner loop): a lane's float4 of column q and its neighbours'
+//   are consecutive 16-byte words, where a row-major [d][NV] would put a
+//   warp's lanes on one bank at NV = 8; ld = 4 (mod 32) keeps the
+//   transposing store free of conflicts too.  A warp computes R = kRows = 2
+//   rows at once, R·NV float32 sums in registers, so each float4 of x read
+//   from shared memory feeds both rows (at NV = 16 a 16-byte load of A needs
+//   16 float4s of x).  The grid is persistent, one block of kWarps = 12 warps
+//   per SM, where 64-row blocks filled 47 of the 132 SMs: a chunk of 3,000
+//   rows at nb = 1 is 1,500 items of two rows, 11 or 12 per SM, so nearly
+//   every warp has one and the others hide its latency.  (On the H100,
+//   4-row items on 8 warps, which leave 2-3 of them idle per SM, were slower
+//   at B = 8 and 16; 16 warps cap a thread at 128 registers, and spilled.)
+//   Item j goes to block j mod grid and there to one warp, so the
+//   SMs' counts of items differ by one at most.  A warp reads its rows whole,
+//   16 bytes a lane, loading the next packets of both rows while it
+//   multiplies the last ones, and its first packets are on their way while
+//   x is staged; after that no warp waits on another.  At the end of an item
+//   the warp sums its R·NV partials across lanes by halving: at each of the
+//   5 steps a lane keeps one half of the values it holds and sends the other
+//   half to its partner, about R·NV shuffles in all where one reduction per
+//   value takes 5·R·NV.  Every sum has a fixed order and there are no
+//   atomics: a chunk gives the same bits on every run.  Where NV columns of
+//   all of d do not fit in a block's 227 KB, d is cut into slices that do,
+//   and the block stages them in turn, between barriers, for every round of
+//   its items.
+// * The general path (s2c2_coded_matvec) for the nvec = 1 shapes that the
+//   stream refuses: one warp per row, each lane issuing 16-byte read-only
+//   loads along the row (a 512-byte coalesced request per warp instruction),
+//   accumulating in float32, and the warp reducing with shuffles.  Each block
+//   covers kRowsPerBlock rows of one assigned row-block and reads that
+//   block's id itself (the TPU kernel's scalar prefetch).  The contraction
+//   dim is walked by a loop inside the warp, which stands in for the TPU's
+//   sequential d-tile grid axis and its VMEM accumulator.
 //
-// In both, an id outside A yields NaN rows and no read.
+// In the multi and general designs a ragged d, or an A that is not 16-byte
+// aligned, takes scalar loads.  In all three an id outside A yields NaN rows
+// and no read.
 #include "common.cuh"
 
 #include <atomic>
@@ -47,16 +81,42 @@
 
 namespace {
 
+constexpr int64_t kSmemBytes = 232448;       // the most one block may use on Hopper
+constexpr int kMaxDevices = 64;
+
+// The SM count of the current device, and `kernel`'s dynamic shared memory
+// limit raised to kSmemBytes: looked up and set once per device, since on
+// every launch they would cost more host time than the launch itself.
+// `sms_of` is the kernel's own cache, 0 until the device is set up.
+template <typename Kernel>
+cudaError_t persistent_setup(Kernel kernel, std::atomic<int> (&sms_of)[kMaxDevices], int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  *sms = sms_of[dev].load(std::memory_order_acquire);
+  if (*sms == 0) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSmemBytes));
+    if (err != cudaSuccess) return err;
+    sms_of[dev].store(*sms, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
+// -- the general path: one warp per row, nvec = 1 ----------------------------
+
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 8;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 
-template <typename T, int NV, bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 coded_matvec_kernel(const T* __restrict__ a, const T* __restrict__ x,
                     const int32_t* __restrict__ ids, T* __restrict__ out,
-                    int64_t n_blocks, int64_t tiles_per_block, int64_t br,
-                    int64_t d, int nvec) {
+                    int64_t n_blocks, int64_t tiles_per_block, int64_t br, int64_t d) {
   const int64_t i = blockIdx.x / tiles_per_block;  // which assigned block
   const int64_t row0 = (blockIdx.x % tiles_per_block) * kRowsPerBlock;
   const int warp = threadIdx.x / 32;
@@ -67,9 +127,7 @@ coded_matvec_kernel(const T* __restrict__ a, const T* __restrict__ x,
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int64_t r = row0 + rr * kWarps + warp;
     if (r >= br) break;
-    float acc[NV];
-#pragma unroll
-    for (int q = 0; q < NV; ++q) acc[q] = 0.f;
+    float acc = 0.f;
     if (valid) {
       const T* arow = a + (id * br + r) * d;
       if constexpr (VEC) {
@@ -77,49 +135,27 @@ coded_matvec_kernel(const T* __restrict__ a, const T* __restrict__ x,
         const int64_t n_packets = d / P::N;
 #pragma unroll 4
         for (int64_t p = lane; p < n_packets; p += 32) {
-          float av[P::N];
+          float av[P::N], xv[P::N];
           P::load(arow + p * P::N, av);
-          if constexpr (NV == 1) {
-            float xv[P::N];
-            P::load(x + p * P::N, xv);
+          P::load(x + p * P::N, xv);
 #pragma unroll
-            for (int e = 0; e < P::N; ++e) acc[0] = fmaf(av[e], xv[e], acc[0]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < P::N; ++e) {
-              const T* xk = x + (p * P::N + e) * nvec;
-#pragma unroll
-              for (int q = 0; q < NV; ++q)
-                if (q < nvec) acc[q] = fmaf(av[e], s2c2::to_float(xk[q]), acc[q]);
-            }
-          }
+          for (int e = 0; e < P::N; ++e) acc = fmaf(av[e], xv[e], acc);
         }
       } else {
-        for (int64_t k = lane; k < d; k += 32) {
-          const float av = s2c2::to_float(arow[k]);
-          const T* xk = x + k * nvec;
-#pragma unroll
-          for (int q = 0; q < NV; ++q)
-            if (q < nvec) acc[q] = fmaf(av, s2c2::to_float(xk[q]), acc[q]);
-        }
+        for (int64_t k = lane; k < d; k += 32)
+          acc = fmaf(s2c2::to_float(arow[k]), s2c2::to_float(x[k]), acc);
       }
     }
-#pragma unroll
-    for (int q = 0; q < NV; ++q) acc[q] = s2c2::warp_sum(acc[q]);
-    if (lane == 0) {
-      T* o = out + (i * br + r) * nvec;
-#pragma unroll
-      for (int q = 0; q < NV; ++q)
-        // an id outside A yields NaN rows instead of an out-of-bounds read
-        if (q < nvec) o[q] = s2c2::from_float<T>(valid ? acc[q] : CUDART_NAN_F);
-    }
+    acc = s2c2::warp_sum(acc);
+    // an id outside A yields NaN rows instead of an out-of-bounds read
+    if (lane == 0) out[i * br + r] = s2c2::from_float<T>(valid ? acc : CUDART_NAN_F);
   }
 }
 
-template <typename T, int NV>
-cudaError_t launch_nv(const void* a, const void* x, const int32_t* ids, void* out,
-                      int64_t n_blocks, int64_t nb, int64_t br, int64_t d, int nvec,
-                      bool vec, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch(const void* a, const void* x, const int32_t* ids, void* out,
+                   int64_t n_blocks, int64_t nb, int64_t br, int64_t d, bool vec,
+                   cudaStream_t stream) {
   const int64_t tiles = (br + kRowsPerBlock - 1) / kRowsPerBlock;
   const dim3 grid(static_cast<unsigned>(nb * tiles));
   const dim3 block(kWarps * 32);
@@ -127,23 +163,12 @@ cudaError_t launch_nv(const void* a, const void* x, const int32_t* ids, void* ou
   const T* x_ = static_cast<const T*>(x);
   T* o_ = static_cast<T*>(out);
   if (vec)
-    coded_matvec_kernel<T, NV, true><<<grid, block, 0, stream>>>(
-        a_, x_, ids, o_, n_blocks, tiles, br, d, nvec);
+    coded_matvec_kernel<T, true><<<grid, block, 0, stream>>>(a_, x_, ids, o_, n_blocks, tiles,
+                                                             br, d);
   else
-    coded_matvec_kernel<T, NV, false><<<grid, block, 0, stream>>>(
-        a_, x_, ids, o_, n_blocks, tiles, br, d, nvec);
+    coded_matvec_kernel<T, false><<<grid, block, 0, stream>>>(a_, x_, ids, o_, n_blocks, tiles,
+                                                              br, d);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* a, const void* x, const int32_t* ids, void* out,
-                   int64_t n_blocks, int64_t nb, int64_t br, int64_t d, int nvec,
-                   bool vec, cudaStream_t stream) {
-  if (nvec == 1)
-    return launch_nv<T, 1>(a, x, ids, out, n_blocks, nb, br, d, nvec, vec, stream);
-  if (nvec <= 4)
-    return launch_nv<T, 4>(a, x, ids, out, n_blocks, nb, br, d, nvec, vec, stream);
-  return launch_nv<T, 16>(a, x, ids, out, n_blocks, nb, br, d, nvec, vec, stream);
 }
 
 
@@ -156,8 +181,6 @@ constexpr int kMaxStages = 8;
 constexpr int kMaxTileRows = 64;
 constexpr int64_t kTileBytes = 64 * 1024;    // the most one bulk copy moves
 constexpr int64_t kMaxRowBytes = 32 * 1024;  // MAX_STREAM_ROW_BYTES in coded_matvec.py
-constexpr int64_t kSmemBytes = 232448;       // the most one block may use on Hopper
-constexpr int kMaxDevices = 64;
 
 __host__ __device__ constexpr int64_t align16(int64_t v) { return (v + 15) / 16 * 16; }
 
@@ -350,24 +373,10 @@ cudaError_t launch(const void* a, const void* x, const int32_t* ids, void* out,
   if (stages > kMaxStages) stages = kMaxStages;
   const size_t smem = static_cast<size_t>(stages * tile_rows * row_bytes + align16(d * 4) +
                                           2 * stages * 8);
-  // The SM count and the dynamic shared memory limit are looked up and set
-  // once per device: on every launch they cost more host time than the
-  // launch itself.
-  static std::atomic<int> sms_of[kMaxDevices];   // 0 until the device is set up
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<int> sms_of[kMaxDevices];
+  int sms = 0;
+  const cudaError_t err = persistent_setup(coded_matvec_stream_kernel<T>, sms_of, &sms);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int sms = sms_of[dev].load(std::memory_order_acquire);
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(coded_matvec_stream_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return err;
-    sms_of[dev].store(sms, std::memory_order_release);
-  }
   const int64_t items = nb * ((br + tile_rows - 1) / tile_rows);
   const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
   coded_matvec_stream_kernel<T><<<grid, (kConsumerWarps + 1) * 32, smem, stream>>>(
@@ -378,20 +387,327 @@ cudaError_t launch(const void* a, const void* x, const int32_t* ids, void* out,
 
 }  // namespace stream
 
+
+// -- the multi design: 2 <= nvec <= 16, x in shared memory ---------------------
+
+namespace multi {
+
+constexpr int kWarps = 12;
+constexpr int kRows = 2;       // R: the rows a warp computes at once
+constexpr int kStage = 8;      // loads of x a thread has in flight while staging
+
+// floats a staged column of `cols` values takes: a multiple of 4 (16-byte
+// columns) that is 4 past a multiple of 32 (a conflict-free transpose)
+__host__ __device__ constexpr int64_t ld_of(int64_t cols) { return (cols + 31) / 32 * 32 + 4; }
+
+// One 16-byte packet of A, widened to float: 4 float32 or 8 bfloat16 values.
+template <typename T> struct Widen;
+
+template <> struct Widen<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void run(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+template <> struct Widen<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void run(const uint4& u, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
+
+// Sum each of the V values in v over the warp's lanes by halving.  While a
+// lane holds N > 1 values, the step at lane offset O keeps the half that the
+// lane's bit O names and adds the partner's copy of it, which the partner
+// sends in exchange for the other half; once N = 1 the steps left add the
+// partner's value.  At the end the lane holds the sums of values first ..
+// first + max(1, V/32) - 1 in v[0 ..], and lanes that differ only in the
+// bits below 32/V hold the same sums.
+template <int V, int N, int O>
+__device__ __forceinline__ void halving_sum(float (&v)[V], int lane, int& first) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      const bool upper = (lane & O) != 0;
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) {
+        const float send = upper ? v[j] : v[j + N / 2];
+        const float keep = upper ? v[j + N / 2] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      if (upper) first += N / 2;
+      halving_sum<V, N / 2, O / 2>(v, lane, first);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      halving_sum<V, 1, O / 2>(v, lane, first);
+    }
+  }
+}
+
+// Packets p, p + 32, ..., p + 32·(U - 1) of each row, zeros past p_end.
+template <typename T, int U, int R>
+__device__ __forceinline__ void load_batch(const T* const (&rows)[R], int64_t p, int64_t p_end,
+                                           uint4 (&raw)[U][R]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      raw[u][r] = p + 32 * u < p_end
+                      ? __ldg(reinterpret_cast<const uint4*>(rows[r]) + p + 32 * u)
+                      : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// xs[q·ld + k] = x[k·nvec + q] for the n = cols·nvec values of x, widened to
+// float.  Each thread has kStage loads in flight, of 16 bytes where x is
+// aligned to them, since one at a time the loads would each wait out the
+// latency of L2.
+template <typename T>
+__device__ __forceinline__ void stage_x(const T* __restrict__ x, float* xs, int n, int nvec,
+                                        int ld) {
+  constexpr int P = Widen<T>::N;
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 && n % P == 0) {
+    const int loads = n / P;
+    for (int l0 = threadIdx.x; l0 < loads; l0 += kStage * blockDim.x) {
+      uint4 raw[kStage];
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) {
+        const int l = l0 + j * blockDim.x;
+        if (l < loads) raw[j] = __ldg(reinterpret_cast<const uint4*>(x) + l);
+      }
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) {
+        const int l = l0 + j * blockDim.x;
+        if (l < loads) {
+          float v[P];
+          Widen<T>::run(raw[j], v);
+#pragma unroll
+          for (int t = 0; t < P; ++t) {
+            const int e = l * P + t, k = e / nvec;
+            xs[(e - k * nvec) * ld + k] = v[t];
+          }
+        }
+      }
+    }
+    return;
+  }
+  for (int e0 = threadIdx.x; e0 < n; e0 += kStage * blockDim.x) {
+    float v[kStage];
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int e = e0 + j * blockDim.x;
+      if (e < n) v[j] = s2c2::to_float(x[e]);
+    }
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const int e = e0 + j * blockDim.x;
+      if (e < n) {
+        const int k = e / nvec;
+        xs[(e - k * nvec) * ld + k] = v[j];
+      }
+    }
+  }
+}
+
+// Block b takes items b, b + grid, b + 2·grid, ...: its k-th goes to warp
+// k mod kWarps in round k / kWarps.  Item j is assigned block j / tiles, rows
+// (j % tiles)·R onwards.  x's slice s (all of d when it fits) is staged at
+// the start of each round, or once when there is one slice.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+coded_matvec_multi_kernel(const T* __restrict__ a, const T* __restrict__ x,
+                          const int32_t* __restrict__ ids, T* __restrict__ out,
+                          int64_t n_blocks, int64_t nb, int64_t br, int64_t d, int nvec,
+                          int64_t slice, int ld, bool vec) {
+  extern __shared__ __align__(16) float xs[];     // NV columns of ld floats
+  constexpr int P = Widen<T>::N;
+  constexpr int V = kRows * NV;
+  // packets of each row a lane loads at once: two, unless the sums and the
+  // widened values would then leave too few registers
+  constexpr int U = V * P < 128 ? 2 : 1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t tiles = (br + kRows - 1) / kRows;
+  const int64_t items = nb * tiles;
+  const int64_t mine = (items - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int64_t rounds = (mine + kWarps - 1) / kWarps;
+  const int64_t slices = (d + slice - 1) / slice;
+
+  for (int e = threadIdx.x; e < (NV - nvec) * ld; e += blockDim.x) xs[nvec * ld + e] = 0.f;
+
+  for (int64_t round = 0; round < rounds; ++round) {
+    const int64_t k = round * kWarps + warp;
+    const bool has = k < mine;                    // the same in every lane
+    const int64_t item = blockIdx.x + k * gridDim.x;
+    const int64_t i = has ? item / tiles : 0;
+    const int64_t row0 = has ? item % tiles * kRows : 0;
+    const int64_t id = has ? ids[i] : -1;
+    const bool valid = id >= 0 && id < n_blocks;
+    // a ragged last tile reads its last row again and stores it once
+    const T* rows[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      rows[r] = a + ((valid ? id : 0) * br + (row0 + r < br ? row0 + r : br - 1)) * d;
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+
+    for (int64_t s = 0; s < slices; ++s) {
+      const int64_t k0 = s * slice;
+      const int kn = static_cast<int>(d - k0 < slice ? d - k0 : slice);
+      const int64_t p_end = (k0 + kn) / P;
+      // the first packets of A are on their way while x is staged
+      uint4 raw[U][kRows];
+      if (valid && vec) load_batch(rows, k0 / P + lane, p_end, raw);
+      if (slices > 1 || round == 0) {
+        __syncthreads();                          // no warp still reads the slice before
+        stage_x(x + k0 * nvec, xs, kn * nvec, nvec, ld);
+        __syncthreads();
+      }
+      if (!valid) continue;
+      if (vec) {
+        // software-pipelined: the next batch of packets is loaded while
+        // this one is used, so the warp's loads never wait on its FMAs
+        for (int64_t p = k0 / P + lane; p < p_end; p += 32 * U) {
+          uint4 next[U][kRows];
+          load_batch(rows, p + 32 * U, p_end, next);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (p + 32 * u >= p_end) break;
+            float av[kRows][P];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) Widen<T>::run(raw[u][r], av[r]);
+            const float* xk = xs + ((p + 32 * u) * P - k0);
+#pragma unroll
+            for (int q = 0; q < NV; ++q) {
+              float xv[P];
+#pragma unroll
+              for (int j = 0; j < P / 4; ++j) {
+                const float4 t = reinterpret_cast<const float4*>(xk + q * ld)[j];
+                xv[4 * j] = t.x;
+                xv[4 * j + 1] = t.y;
+                xv[4 * j + 2] = t.z;
+                xv[4 * j + 3] = t.w;
+              }
+              // rows innermost: consecutive FMAs add into different sums
+#pragma unroll
+              for (int e = 0; e < P; ++e)
+#pragma unroll
+                for (int r = 0; r < kRows; ++r)
+                  acc[r * NV + q] = fmaf(av[r][e], xv[e], acc[r * NV + q]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) raw[u][r] = next[u][r];
+        }
+      } else {
+        for (int kk = lane; kk < kn; kk += 32) {
+          float av[kRows];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) av[r] = s2c2::to_float(rows[r][k0 + kk]);
+#pragma unroll
+          for (int q = 0; q < NV; ++q) {
+            const float xv = xs[q * ld + kk];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) acc[r * NV + q] = fmaf(av[r], xv, acc[r * NV + q]);
+          }
+        }
+      }
+    }
+
+    if (!has) continue;
+    int first = 0;
+    halving_sum<V, V, 16>(acc, lane, first);
+    constexpr int kHeld = V >= 32 ? V / 32 : 1;
+    constexpr int kCopies = V >= 32 ? 1 : 32 / V;
+    if (lane % kCopies == 0) {
+#pragma unroll
+      for (int h = 0; h < kHeld; ++h) {
+        const int v = first + h, r = v / NV, q = v % NV;
+        if (q < nvec && row0 + r < br)
+          out[(i * br + row0 + r) * nvec + q] =
+              s2c2::from_float<T>(valid ? acc[h] : CUDART_NAN_F);
+      }
+    }
+  }
+}
+
+template <typename T, int NV>
+cudaError_t launch_nv(const void* a, const void* x, const int32_t* ids, void* out,
+                   int64_t n_blocks, int64_t nb, int64_t br, int64_t d, int nvec,
+                   cudaStream_t stream) {
+  if (d < 1 || br < 1 || nb < 1 || nvec < 2 || nvec > NV) return cudaErrorInvalidValue;
+  // x's NV columns over all of d when they fit, else over the widest
+  // multiple of 32 columns that does (a multiple of a packet, too)
+  const int64_t max_ld = kSmemBytes / (NV * 4);
+  const int64_t slice = ld_of(d) <= max_ld ? d : (max_ld - 4) / 32 * 32;
+  const int ld = static_cast<int>(ld_of(slice));
+  const bool vec = d % Widen<T>::N == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  static std::atomic<int> sms_of[kMaxDevices];
+  int sms = 0;
+  const cudaError_t err = persistent_setup(coded_matvec_multi_kernel<T, NV>, sms_of, &sms);
+  if (err != cudaSuccess) return err;
+  const int64_t items = nb * ((br + kRows - 1) / kRows);
+  const unsigned grid = static_cast<unsigned>(items < sms ? items : sms);
+  coded_matvec_multi_kernel<T, NV><<<grid, kWarps * 32, static_cast<size_t>(NV) * ld * 4,
+                                     stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(x), ids, static_cast<T*>(out), n_blocks,
+      nb, br, d, nvec, slice, ld, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* a, const void* x, const int32_t* ids, void* out,
+                   int64_t n_blocks, int64_t nb, int64_t br, int64_t d, int nvec,
+                   cudaStream_t stream) {
+  if (nvec <= 2) return launch_nv<T, 2>(a, x, ids, out, n_blocks, nb, br, d, nvec, stream);
+  if (nvec <= 4) return launch_nv<T, 4>(a, x, ids, out, n_blocks, nb, br, d, nvec, stream);
+  if (nvec <= 8) return launch_nv<T, 8>(a, x, ids, out, n_blocks, nb, br, d, nvec, stream);
+  return launch_nv<T, 16>(a, x, ids, out, n_blocks, nb, br, d, nvec, stream);
+}
+
+}  // namespace multi
+
 }  // namespace
 
-// a: (n_blocks·br, d); x: (d, nvec); ids: (nb,) int32; out: (nb, br, nvec).
+// The general path: nvec = 1, any shape.
+// a: (n_blocks·br, d); x: (d,); ids: (nb,) int32; out: (nb, br).
 // `vec` asks for 16-byte loads: the caller checks d and the alignment.
 S2C2_API int s2c2_coded_matvec(const void* a, const void* x, const void* ids, void* out,
                                int64_t n_blocks, int64_t nb, int64_t br, int64_t d,
-                               int nvec, int dtype, int vec, void* stream) {
+                               int dtype, int vec, void* stream) {
   const auto* ids_ = static_cast<const int32_t*>(ids);
   auto s = static_cast<cudaStream_t>(stream);
-  if (nvec < 1 || nvec > 16) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == s2c2::kFloat32)
-    return launch<float>(a, x, ids_, out, n_blocks, nb, br, d, nvec, vec != 0, s);
+    return launch<float>(a, x, ids_, out, n_blocks, nb, br, d, vec != 0, s);
   if (dtype == s2c2::kBFloat16)
-    return launch<__nv_bfloat16>(a, x, ids_, out, n_blocks, nb, br, d, nvec, vec != 0, s);
+    return launch<__nv_bfloat16>(a, x, ids_, out, n_blocks, nb, br, d, vec != 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The multi design: 2 <= nvec <= 16, any d, any alignment; nb >= 1.
+// a: (n_blocks·br, d); x: (d, nvec), row-major; ids: (nb,) int32;
+// out: (nb, br, nvec).
+S2C2_API int s2c2_coded_matvec_multi(const void* a, const void* x, const void* ids, void* out,
+                                     int64_t n_blocks, int64_t nb, int64_t br, int64_t d,
+                                     int nvec, int dtype, void* stream) {
+  const auto* ids_ = static_cast<const int32_t*>(ids);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (nvec < 2 || nvec > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == s2c2::kFloat32)
+    return multi::launch<float>(a, x, ids_, out, n_blocks, nb, br, d, nvec, s);
+  if (dtype == s2c2::kBFloat16)
+    return multi::launch<__nv_bfloat16>(a, x, ids_, out, n_blocks, nb, br, d, nvec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

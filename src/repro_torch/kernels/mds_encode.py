@@ -28,10 +28,11 @@ launches = 0
 def mds_encode_plain(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version (the JAX package's ``mds_encode_ref``).
 
-    g: (n, k); blocks: (k, rows, d) -> (n, rows, d) in blocks' dtype,
-    accumulated in float32.
+    g: (n, k); blocks: (k, ...) -> (n, ...) in blocks' dtype, accumulated
+    in float32: a contraction over the leading axis, as the JAX package's
+    ``encode_blocks`` (a ``tensordot`` over axis 0) takes any block shape.
     """
-    return torch.einsum("nk,krd->nrd", g.float(), blocks.float()).to(blocks.dtype)
+    return torch.einsum("nk,k...->n...", g.float(), blocks.float()).to(blocks.dtype)
 
 
 def mds_encode_cuda(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -42,8 +43,8 @@ def mds_encode_cuda(g: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     """
     global launches
     fn = _build.kernel("s2c2_mds_encode")
-    if g.ndim != 2 or blocks.ndim < 2:
-        raise ValueError(f"need g (n, k) and blocks (k, rows, ...), got "
+    if g.ndim != 2 or blocks.ndim < 1:
+        raise ValueError(f"need g (n, k) and blocks (k, ...), got "
                          f"{tuple(g.shape)} and {tuple(blocks.shape)}")
     n, k = g.shape
     if blocks.shape[0] != k:

@@ -4,8 +4,11 @@ tensor the hand-written kernel.
 There is no fallback between the two: tensors on a CUDA device launch the
 kernel or raise (a missing toolkit, a failed build or a refused launch all
 raise), and tensors on any other device, or on several devices at once,
-raise.  The kernels have no backward yet, so a CUDA call that autograd
-would have to differentiate raises too.
+raise.  The LSTM's kernels have a backward: a CUDA call that autograd has
+to differentiate launches the kernel on detached inputs, and its backward
+recomputes the plain version and differentiates that, as the JAX package
+differentiates only its plain ``jnp`` path.  The other kernels have none,
+so such a call to them raises.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ _MODULES = {"coded_matvec": _cmv, "mds_encode": _enc, "mds_decode": _dec,
             "lstm_cell": _lstm}
 
 
-def _use_kernel(op: str, *tensors: torch.Tensor) -> bool:
+def _on_card(op: str, *tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU tensors; raise for anything else."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -35,10 +38,44 @@ def _use_kernel(op: str, *tensors: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{op}: no version for device {dev}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    return True
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _use_kernel(op: str, *tensors: torch.Tensor) -> bool:
+    """:func:`_on_card`, raising for a CUDA call that autograd would have to
+    differentiate (these kernels have no backward)."""
+    if not _on_card(op, *tensors):
+        return False
+    if _needs_grad(tensors):
         raise RuntimeError(f"{op}: the CUDA kernel has no backward; call it under "
                            "torch.no_grad()")
     return True
+
+
+class _PlainBackward(torch.autograd.Function):
+    """``kernel(*args)`` forward, on detached inputs; the backward recomputes
+    ``plain(*args)`` under autograd and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return kernel(*(a.detach() for a in args))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = [a.detach().requires_grad_(need)
+                for a, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+        wrt = [a for a in args if a.requires_grad]
+        got = iter(torch.autograd.grad(out if isinstance(out, tuple) else (out,), wrt, grads,
+                                       allow_unused=True))
+        return (None, None, *(next(got) if a.requires_grad else None for a in args))
 
 
 def coded_matvec(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
@@ -82,9 +119,12 @@ def mds_decode_into(w: torch.Tensor, parts: torch.Tensor, table: torch.Tensor,
 def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor):
     """Fused LSTM cell; shapes as in :func:`ref.lstm_cell_ref`."""
-    if _use_kernel("lstm_cell", x, h, c, w_ih, w_hh, b):
-        return _lstm.lstm_cell_cuda(x, h, c, w_ih, w_hh, b)
-    return _lstm.lstm_cell_plain(x, h, c, w_ih, w_hh, b)
+    args = (x, h, c, w_ih, w_hh, b)
+    if not _on_card("lstm_cell", *args):
+        return _lstm.lstm_cell_plain(*args)
+    if _needs_grad(args):
+        return _PlainBackward.apply(_lstm.lstm_cell_cuda, _lstm.lstm_cell_plain, *args)
+    return _lstm.lstm_cell_cuda(*args)
 
 
 def lstm_sequence(xs: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor,
@@ -92,9 +132,12 @@ def lstm_sequence(xs: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b: t
     """The LSTM over a window from h = c = 0, with the output head at every
     step: xs (T, B, I) -> ys (T, B, O); weights as in
     :func:`ref.lstm_sequence_ref`."""
-    if _use_kernel("lstm_sequence", xs, w_ih, w_hh, b, w_out, b_out):
-        return _lstm.lstm_sequence_cuda(xs, w_ih, w_hh, b, w_out, b_out)
-    return _lstm.lstm_sequence_plain(xs, w_ih, w_hh, b, w_out, b_out)
+    args = (xs, w_ih, w_hh, b, w_out, b_out)
+    if not _on_card("lstm_sequence", *args):
+        return _lstm.lstm_sequence_plain(*args)
+    if _needs_grad(args):
+        return _PlainBackward.apply(_lstm.lstm_sequence_cuda, _lstm.lstm_sequence_plain, *args)
+    return _lstm.lstm_sequence_cuda(*args)
 
 
 def launch_counts() -> dict[str, int]:
@@ -105,10 +148,11 @@ def launch_counts() -> dict[str, int]:
 
 
 def design_counts() -> dict[str, dict[str, int]]:
-    """The launches of the kernels with two designs, per design, since the
-    last reset."""
+    """The launches of the kernels with several designs, per design, since
+    the last reset."""
     with _build.COUNT_LOCK:
         return {"coded_matvec": {"stream": _cmv.launches_stream,
+                                 "multi": _cmv.launches_multi,
                                  "general": _cmv.launches_general},
                 "lstm_cell": {"sequence": _lstm.launches_sequence,
                               "cell": _lstm.launches_cell}}
@@ -118,5 +162,5 @@ def reset_launch_counts() -> None:
     with _build.COUNT_LOCK:
         for mod in _MODULES.values():
             mod.launches = 0
-        _cmv.launches_stream = _cmv.launches_general = 0
+        _cmv.launches_stream = _cmv.launches_multi = _cmv.launches_general = 0
         _lstm.launches_sequence = _lstm.launches_cell = 0

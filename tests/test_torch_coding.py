@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cuda import cuda  # noqa: F401  (fixture)
 from repro.core import coding as jcoding
 from repro_torch.core import coding
 
@@ -45,6 +46,33 @@ def test_encode_matches_jax(n, k, rows, d):
     want = np.asarray(jcoding.MDSCode(n, k).encode(jnp.asarray(a)))
     assert got.shape == want.shape == (n, -(-rows // k), d)   # rows padded to k
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+# the JAX package encodes any array whose leading axis is rows (a tensordot
+# over axis 0): a vector, and blocks of more than two dims
+BLOCK_SHAPES = [((9,), (5, 3)), ((9, 2, 2), (5, 3, 2, 2))]
+
+
+@pytest.mark.parametrize("shape,coded", BLOCK_SHAPES)
+def test_encode_takes_any_block_shape(shape, coded):
+    import jax.numpy as jnp
+    a = np.random.default_rng(len(shape)).standard_normal(shape).astype(np.float32)
+    got = coding.MDSCode(5, 3).encode(torch.from_numpy(a))
+    want = np.asarray(jcoding.MDSCode(5, 3).encode(jnp.asarray(a)))
+    assert tuple(got.shape) == want.shape == coded
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,coded", BLOCK_SHAPES)
+def test_cuda_encode_takes_any_block_shape(cuda, shape, coded):
+    """The kernel's encode of the same shapes against the plain version."""
+    a = torch.from_numpy(np.random.default_rng(len(shape)).standard_normal(shape)
+                         .astype(np.float32))
+    got = coding.MDSCode(5, 3).encode(a.to(cuda))
+    want = coding.MDSCode(5, 3).encode(a)
+    assert tuple(got.shape) == coded
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
 
 
 def test_decode_matrix_bit_equal():

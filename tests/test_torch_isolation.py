@@ -103,6 +103,9 @@ def test_cuda_tensor_without_library_raises(monkeypatch):
             lambda: ops.coded_matvec(torch.empty(64, 32, device=cuda),
                                      torch.empty(32, 1, device=cuda),
                                      torch.zeros(2, dtype=torch.int32, device=cuda), 8),
+            lambda: ops.coded_matvec(torch.empty(64, 32, device=cuda),
+                                     torch.empty(32, 3, device=cuda),
+                                     torch.zeros(2, dtype=torch.int32, device=cuda), 8),
             lambda: ops.mds_encode(torch.empty(6, 4, device=cuda),
                                    torch.empty(4, 8, 16, device=cuda)),
             lambda: ops.mds_decode(torch.empty(3, 4, 4, device=cuda),
@@ -116,7 +119,7 @@ def test_cuda_tensor_without_library_raises(monkeypatch):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 call()
     assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
-    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "general": 0},
+    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "multi": 0, "general": 0},
                                    "lstm_cell": {"sequence": 0, "cell": 0}}
 
 
@@ -139,5 +142,5 @@ def test_cpu_run_launches_no_kernel():
         sp.observe(traces[it])
     assert ops.launch_counts() == {"coded_matvec": 0, "mds_encode": 0, "mds_decode": 0,
                                    "lstm_cell": 0}
-    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "general": 0},
+    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "multi": 0, "general": 0},
                                    "lstm_cell": {"sequence": 0, "cell": 0}}

@@ -95,22 +95,29 @@ class TestCodedMatvec:
         assert got.shape == (3, 8)
         np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
 
-    @pytest.mark.parametrize("d,dtype,nvec,offset,stream", [
-        (2048, torch.float32, None, 0, True), (2048, torch.float32, 1, 0, True),
-        (4096, torch.bfloat16, None, 0, True), (8192, torch.float32, None, 0, True),
-        (16384, torch.bfloat16, None, 0, True), (4, torch.float32, None, 0, True),
-        (130, torch.float32, None, 0, False), (2048, torch.float32, 3, 0, False),
-        (2048, torch.float32, None, 1, False), (8200, torch.float32, None, 0, False),
-        (16392, torch.bfloat16, None, 0, False)])
-    def test_stream_dispatch_rule(self, d, dtype, nvec, offset, stream):
+    @pytest.mark.parametrize("d,dtype,nvec,offset,design", [
+        (2048, torch.float32, None, 0, "stream"), (2048, torch.float32, 1, 0, "stream"),
+        (4096, torch.bfloat16, None, 0, "stream"), (8192, torch.float32, None, 0, "stream"),
+        (16384, torch.bfloat16, None, 0, "stream"), (4, torch.float32, None, 0, "stream"),
+        (130, torch.float32, None, 0, "general"), (2048, torch.float32, 3, 0, "multi"),
+        (2048, torch.float32, None, 1, "general"), (8200, torch.float32, None, 0, "general"),
+        (16392, torch.bfloat16, None, 0, "general"),
+        # every x of 2 to 16 columns takes the multi design, whatever d,
+        # the base's alignment or the row's length
+        (2048, torch.float32, 2, 0, "multi"), (2048, torch.float32, 5, 0, "multi"),
+        (2048, torch.bfloat16, 8, 0, "multi"), (2048, torch.float32, 16, 0, "multi"),
+        (130, torch.float32, 8, 0, "multi"), (2048, torch.float32, 8, 1, "multi"),
+        (8200, torch.float32, 16, 0, "multi"), (16392, torch.bfloat16, 2, 0, "multi")])
+    def test_stream_dispatch_rule(self, d, dtype, nvec, offset, design):
         """The stream design takes nvec = 1 with 16-byte-aligned rows of at
-        most 32 KB; everything else goes to the general path."""
+        most 32 KB; the multi design every nvec of 2 or more; the general
+        path the rest."""
         from repro_torch.kernels import coded_matvec as cmv
         flat = torch.empty(8 * d + 16, dtype=dtype)
         shift = (-flat.data_ptr() % 16) // flat.element_size() + offset
         a = flat[shift:shift + 8 * d].view(8, d)
         x = torch.empty(d, dtype=dtype) if nvec is None else torch.empty(d, nvec, dtype=dtype)
-        assert cmv.takes_stream(a, x) == stream
+        assert cmv.design_of(a, x) == design
 
     def test_work_scales_with_assignment(self):
         """Compacted output shape == number of assigned blocks (the S²C² property)."""
@@ -316,6 +323,15 @@ def _cuda_rand(gen, shape, dtype=torch.float32):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+# the multi design, as (blocks in a, assigned nb, br, d): the cluster's
+# chunk (nb = 1 of 3,000 rows at d = 2,048, one wave of 750 items), a
+# worker's whole partition (nb = 20), a ragged br of 100 rows, a ragged d
+# (scalar loads) and d = 8,192 (x in slices at every width from 5 columns)
+MULTI_SHAPES = [(2, 1, 3000, 2048), (20, 20, 3000, 2048), (9, 4, 100, 2048), (3, 2, 100, 130),
+                (3, 2, 100, 8192)]
+MULTI_NVEC = [2, 3, 5, 8, 15, 16]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("chunks,br,d,nvec", MATVEC_SHAPES + [(6, 100, 2048, 1),
@@ -330,6 +346,58 @@ def test_cuda_coded_matvec(cuda, dtype, chunks, br, d, nvec):
     want = ref.coded_matvec_ref(a, x, ids, br)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nvec", MULTI_NVEC)
+@pytest.mark.parametrize("n_blocks,nb,br,d", MULTI_SHAPES)
+def test_cuda_coded_matvec_multi(cuda, dtype, nvec, n_blocks, nb, br, d):
+    """The multi design against the plain version; a second run gives the
+    same bits (fixed sums, no atomics)."""
+    from repro_torch.kernels import coded_matvec as cmv
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a = _cuda_rand(gen, (n_blocks * br, d), TORCH_DTYPE[dtype])
+    x = _cuda_rand(gen, (d, nvec), TORCH_DTYPE[dtype])
+    ids = torch.randperm(n_blocks, generator=gen, device=cuda)[:nb].to(torch.int32)
+    ops.reset_launch_counts()
+    got = ops.coded_matvec(a, x, ids, br)
+    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "multi": 1, "general": 0}
+    again = cmv.coded_matvec_multi(a, x, ids, br)
+    want = ref.coded_matvec_ref(a, x, ids, br)
+    torch.cuda.synchronize()
+    assert got.shape == (nb, br, nvec) and got.dtype == a.dtype
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+    ops.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nvec", [2, 8, 16])
+def test_cuda_coded_matvec_multi_bad_id_gives_nan(cuda, dtype, nvec):
+    from repro_torch.kernels import coded_matvec as cmv
+    a = torch.ones(5 * 9, 256, device=cuda, dtype=TORCH_DTYPE[dtype])
+    x = torch.ones(256, nvec, device=cuda, dtype=TORCH_DTYPE[dtype])
+    ids = torch.tensor([1, 5, -1, 4], dtype=torch.int32, device=cuda)
+    out = cmv.coded_matvec_multi(a, x, ids, 9)
+    torch.cuda.synchronize()
+    assert torch.all(out[[0, 3]] == 256)
+    assert torch.isnan(out[[1, 2]].float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 130])
+def test_cuda_coded_matvec_multi_misaligned_base(cuda, d):
+    """A view that starts 4 bytes past a 16-byte boundary takes scalar loads."""
+    from repro_torch.kernels import coded_matvec as cmv
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    flat = _cuda_rand(gen, (6 * 50 * d + 1,))
+    a, x = flat[1:].view(6 * 50, d), _cuda_rand(gen, (d, 8))
+    ids = torch.tensor([4, 0, 5], dtype=torch.int32, device=cuda)
+    got = cmv.coded_matvec_multi(a, x, ids, 50)
+    want = ref.coded_matvec_ref(a, x, ids, 50)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL["float32"])
 
 
 @pytest.mark.cuda
@@ -423,7 +491,8 @@ def test_cuda_coded_matvec_stream(cuda, dtype, n_blocks, nb, br, d):
     ids = torch.randint(0, n_blocks, (nb,), generator=gen, device=cuda, dtype=torch.int32)
     ops.reset_launch_counts()
     got = cmv.coded_matvec_stream(a, x, ids, br)
-    assert ops.design_counts()["coded_matvec"] == {"stream": int(nb > 0), "general": 0}
+    assert ops.design_counts()["coded_matvec"] == {"stream": int(nb > 0), "multi": 0,
+                                                   "general": 0}
     want = ref.coded_matvec_ref(a, x, ids, br)
     torch.cuda.synchronize()
     assert got.shape == (nb, br) and got.dtype == a.dtype
@@ -460,8 +529,9 @@ def test_cuda_coded_matvec_stream_bad_id_gives_nan(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_coded_matvec_design_follows_shape(cuda):
-    """Aligned nvec = 1 shapes take the stream; a ragged row, a misaligned
-    base, several vectors or a row over 32 KB take the general path."""
+    """Aligned nvec = 1 shapes take the stream; several vectors the multi
+    design; a ragged row, a misaligned base or a row over 32 KB at nvec = 1
+    the general path."""
     from repro_torch.kernels import coded_matvec as cmv
     gen = torch.Generator(device=cuda).manual_seed(5)
     ids = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
@@ -471,24 +541,30 @@ def test_cuda_coded_matvec_design_follows_shape(cuda):
                    (_cuda_rand(gen, (32, 4096), torch.bfloat16),
                     _cuda_rand(gen, (4096, 1), torch.bfloat16)),
                    (_cuda_rand(gen, (32, 8192)), _cuda_rand(gen, (8192,)))],
+        "multi": [(_cuda_rand(gen, (32, 2048)), _cuda_rand(gen, (2048, 3))),
+                  (flat[1:].view(32, 2048), _cuda_rand(gen, (2048, 16))),
+                  (_cuda_rand(gen, (32, 8200)), _cuda_rand(gen, (8200, 2)))],
         "general": [(_cuda_rand(gen, (32, 130)), _cuda_rand(gen, (130,))),
                     (flat[1:].view(32, 2048), _cuda_rand(gen, (2048,))),
-                    (_cuda_rand(gen, (32, 2048)), _cuda_rand(gen, (2048, 3))),
                     (_cuda_rand(gen, (32, 8200)), _cuda_rand(gen, (8200,)))],
     }
     for design, operands in cases.items():
         for a, x in operands:
             ops.reset_launch_counts()
             got = ops.coded_matvec(a, x, ids, 8)
-            assert cmv.takes_stream(a, x) == (design == "stream")
+            assert cmv.design_of(a, x) == design
             assert ops.design_counts()["coded_matvec"] == {
-                "stream": int(design == "stream"), "general": int(design == "general")}
+                name: int(name == design) for name in ("stream", "multi", "general")}
             np.testing.assert_allclose(_np(got.cpu()),
                                        _np(ref.coded_matvec_ref(a, x, ids, 8).cpu()),
                                        **TOL["float32" if a.dtype == torch.float32
                                              else "bfloat16"])
-    with pytest.raises(ValueError, match="stream design takes"):
+    with pytest.raises(ValueError, match="the stream design does not take"):
         cmv.coded_matvec_stream(a, x, ids, 8)
+    with pytest.raises(ValueError, match="the multi design does not take"):
+        cmv.coded_matvec_multi(a, x, ids, 8)
+    with pytest.raises(ValueError, match="the general design does not take"):
+        cmv.coded_matvec_general(*cases["multi"][0], ids, 8)
     ops.reset_launch_counts()
 
 

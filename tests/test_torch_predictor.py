@@ -68,6 +68,64 @@ def test_lstm_apply(params_np):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
+def _weighted_loss_grads(apply, params, xs, w):
+    """Gradients of sum(apply(params, xs) * w) with respect to every
+    parameter of a port model, by torch autograd."""
+    loss = (apply(params, xs) * w).sum()
+    names = list(convert.load_params_numpy())
+    return dict(zip(names, torch.autograd.grad(loss, [getattr(params, n) for n in names])))
+
+
+def test_lstm_apply_gradients_match_jax(params_np):
+    """Outside ``no_grad``: the port's ``lstm_apply`` differentiates like the
+    JAX package's (``jax.grad`` through its ``lax.scan``)."""
+    rng = np.random.default_rng(5)
+    xs = rng.uniform(0.1, 1.0, (10, 5, 1)).astype(np.float32)
+    w = rng.standard_normal((10, 5, 1)).astype(np.float32)
+    got = _weighted_loss_grads(predictor.lstm_apply, _port(params_np), torch.from_numpy(xs),
+                               torch.from_numpy(w))
+    want = jax.grad(lambda p: jnp.sum(jpred.lstm_apply(p, jnp.asarray(xs)) * w))(
+        _jax(params_np))
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), **TOL)
+
+
+@pytest.mark.parametrize("op", ["lstm_cell", "lstm_sequence"])
+def test_kernel_forward_differentiates_the_plain_version(op):
+    """The autograd path a CUDA call takes (``ops._PlainBackward``), run on
+    the CPU with the plain version in the kernel's place: the forward runs
+    it once without a graph, and the gradients equal autograd's through the
+    plain version."""
+    from repro_torch.kernels import lstm_cell as lstm_mod
+    plain = getattr(lstm_mod, f"{op}_plain")
+    rng = np.random.default_rng(6)
+    shapes = ([(6, 1), (6, 4), (6, 4)] if op == "lstm_cell" else [(9, 6, 1)]) + \
+        [(16, 1), (16, 4), (16,)] + ([] if op == "lstm_cell" else [(1, 4), (1,)])
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5).requires_grad_()
+            for s in shapes]
+    calls = []
+
+    def kernel(*a):
+        assert not torch.is_grad_enabled() and not any(t.requires_grad for t in a)
+        calls.append(1)
+        return plain(*a)
+
+    def flat(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    got = flat(ops._PlainBackward.apply(kernel, plain, *args))
+    want = flat(plain(*args))
+    assert len(calls) == 1
+    weights = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32))
+               for o in want]
+    g_got = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(got, weights)), args)
+    g_want = torch.autograd.grad(sum((o * wt).sum() for o, wt in zip(want, weights)), args)
+    for o, o_want in zip(got, want):
+        np.testing.assert_array_equal(o.detach().numpy(), o_want.detach().numpy())
+    for g, g_w in zip(g_got, g_want):
+        np.testing.assert_allclose(g.numpy(), g_w.numpy(), rtol=1e-6, atol=1e-6)
+
+
 def test_predict_next(params_np):
     hist = controlled_traces(12, 32, n_stragglers=2, seed=7).astype(np.float32)
     got = predictor.predict_next(_port(params_np), torch.from_numpy(hist))
@@ -179,4 +237,29 @@ def test_cuda_speed_predictor_matches_cpu(cuda):
         on_card.observe(traces[it])
         on_cpu.observe(traces[it])
     assert ops.design_counts()["lstm_cell"] == {"sequence": 29, "cell": 0}
+    ops.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_apply_with_grad(cuda):
+    """``lstm_apply`` on a CUDA predictor with grad enabled: one launch of the
+    sequence kernel, and the plain version's outputs and parameter gradients."""
+    rng = np.random.default_rng(7)
+    xs = rng.uniform(0.1, 1.0, (32, 12, 1)).astype(np.float32)
+    w = rng.standard_normal((32, 12, 1)).astype(np.float32)
+    on_card = convert.load_params(device=cuda)
+    on_cpu = convert.load_params(device="cpu")
+    ops.reset_launch_counts()
+    ys = predictor.lstm_apply(on_card, torch.from_numpy(xs).to(cuda))
+    assert ops.design_counts()["lstm_cell"] == {"sequence": 1, "cell": 0}
+    assert ys.requires_grad
+    np.testing.assert_allclose(ys.detach().cpu().numpy(),
+                               predictor.lstm_apply(on_cpu, torch.from_numpy(xs))
+                               .detach().numpy(), **TOL)
+    got = _weighted_loss_grads(predictor.lstm_apply, on_card, torch.from_numpy(xs).to(cuda),
+                               torch.from_numpy(w).to(cuda))
+    want = _weighted_loss_grads(predictor.lstm_apply, on_cpu, torch.from_numpy(xs),
+                                torch.from_numpy(w))
+    for name, g in got.items():
+        np.testing.assert_allclose(g.cpu().numpy(), want[name].numpy(), **TOL)
     ops.reset_launch_counts()
