@@ -66,14 +66,57 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``call_ms``, the decode's times, ``calibrate_row_cost`` and the
    backend's caches.  Then a small pool of spawned worker processes
    (``SocketTransport``, 4 workers, each building the CUDA backend on the
-   card from the library built here) runs 3 exact rounds.
+   card from the library built here) runs 3 exact rounds;
+6. the paper's workloads at full size, through ``repro_torch.workloads``
+   (the loops the examples run), each step with its launches counted from
+   0 and checked, each of its kernels then held against its plain version
+   on the step's own card tensors (the encode it ran, one real round's
+   ``coded_matvec`` and ``mds_decode_into``, the training window's
+   sequence), its tensors freed before the next:
+   (a) the LSTM predictor trained on the card as ``benchmarks/
+       fig_predictor.py`` trains it (300 epochs over 400 × 20 traces) from
+       the JAX package's start (``data/lstm_predictor_init.json``): one
+       sequence launch under grad per epoch and one per evaluation (302,
+       the per-step cell never), its test MAPE within 1e-3 (relative) of
+       the JAX package's training (the committed parameters) and below
+       the untrained model's; 30 epochs all plain on the card and on the
+       CPU are timed beside it;
+   (b) logistic regression and the SVM by 100 steps of gradient descent
+       on ``make_lr_dataset(240,000, 5,000)`` with A·w coded ((12, 10)
+       code, C = 20, the stream design) and planned each step from the
+       trained predictor's forecast of ``controlled_traces(12, 100, 1
+       straggler)``, Aᵀ·g a float32 ``torch.matmul``: every coded A·w
+       within 1e-3 of the float64 product, the logistic weights within
+       1e-3 of the same descent in float64 on the card, the SVM's
+       objective within 3e-5 of its float64 run's (its weights, like an
+       uncoded float32 run's, are printed beside them), accuracy above 0.8
+       and within 0.005 of float64; 200 ``coded_matvec``, 200
+       ``mds_decode`` and 198 sequence launches;
+   (e) a cyclic gradient code (12 groups, 2 stragglers) over 24,000 of
+       those rows, partitioned by ``balanced_part_sizes`` from (b)'s
+       forecast, each group's coded gradient from ``encode_local`` on the
+       card, decoded from 3 live sets within 1e-3 of float64;
+   (c) PageRank (40 power iterations on ``make_graph(32,768, 16)``) and a
+       3-hop Laplacian filter on its first 16,384 nodes, each matvec coded
+       on the general design (rows over the stream's 32 KB) and planned
+       from the trained predictor, every coded product within 1e-3 and
+       the result within 1e-4 of float64 on the card; 43 general-design
+       and 43 ``mds_decode`` launches; then the general design at both
+       shapes in turns against ``torch.matmul`` on the same rows gathered
+       beforehand and the plain version;
+   (d) the Hessian AᵀDA of a 6,000 × 6,000 matrix on a (12, a = b = 3)
+       polynomial code from 9 nodes, within 1e-3 of float64 on the card.
 
 The last lines are the in-turn times as JSON, the per-kernel record as JSON
 (``ms``, ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the
 per-call times; ``launches`` the main path's, ``cluster_launches`` the
-cluster phase's) and the device line.  The record of ``coded_matvec``'s
-multi design, which only the cluster's ``matmul`` rounds launch, is at a
-chunk's shape at B = 8, and its ``launches`` are the cluster phase's.
+cluster phase's, ``workload_launches`` phase 6's) and the device line.
+The record of ``coded_matvec``'s multi design, which only the cluster's
+``matmul`` rounds launch, is at a chunk's shape at B = 8, and its
+``launches`` are the cluster phase's; the
+two records of the general design, which only phase 6 launches, are at
+PageRank's and the filter's shapes, with phase 6's launches.  Before them a
+JSON line holds phase 6's record.
 """
 
 from __future__ import annotations
@@ -105,6 +148,22 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 REPS = 20
 DEVICE_WINDOW_MS = 50.0         # device_ms: about this much work per window
+# phase 6, the paper's workloads: the predictor's training call of
+# benchmarks/fig_predictor.py; gradient descent over gisette's 5,000 features
+# (the dataset the paper duplicates) as examples/coded_regression.py runs it;
+# PageRank and the 3-hop filter of examples/pagerank.py on a larger graph;
+# the Hessian at benchmarks/fig_polynomial.py's 6,000 x 6,000
+PRED_TRACES = dict(n_nodes=20, n_iters=400, noise_sigma=0.08, p_become_straggler=0.03,
+                   p_recover=0.25, drift_sigma=0.05)
+PRED_SEED, PRED_EPOCHS = 7, 300
+PRED_MAPE_RTOL = 1e-3           # the port's training against the JAX package's, test MAPE
+PLAIN_EPOCHS = 30               # all-plain training, timed per epoch
+SVM_OBJECTIVE_RTOL = 3e-5       # 10x the worst reading of PR 17's runs (2.8e-6)
+LR_ROWS, LR_COLS, LR_ITERS, LR_STEP = 240_000, 5_000, 100, 0.5
+PR_NODES, PR_DEGREE, PR_ITERS, PR_DAMPING = 32_768, 16, 40, 0.85
+FILTER_NODES, FILTER_HOPS = 16_384, 3
+HESSIAN, POLY_NODES = 6_000, [0, 1, 3, 4, 5, 7, 8, 9, 11]
+GC_S, GC_BATCH, GC_LIVE_SETS = 2, 24_000, 3
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -456,6 +515,568 @@ def multi_in_turns(shard, rpc, zero, compare, timed, in_turns, rng, dev) -> dict
                                   f"({COLS}, 8)", design="multi", shape=label,
                           stream_b1_device_ms=stream_b1["device_ms"])
     return record
+
+
+# -- 6. the paper's workloads ------------------------------------------------
+
+def expect(label: str, got, want) -> None:
+    """Fail the run unless ``got == want``."""
+    if got != want:
+        raise RuntimeError(f"{label}: {got}, not {want}")
+
+
+def rel_err(got, want) -> float:
+    """The largest error over the largest entry of ``want`` (the error
+    itself where ``want`` is 0, as the first iterate's product from w = 0)."""
+    diff, scale = (got.double() - want).abs().max(), want.abs().max()
+    return float(diff / scale if scale > 0 else diff)
+
+
+class Forecast:
+    """``speeds(it)`` for a workload loop, closing the paper's loop on the
+    card: the trained predictor observes iteration it - 1's true speeds,
+    then forecasts iteration it's (one sequence launch once it has
+    history)."""
+
+    def __init__(self, trained, observed, dev):
+        from repro_torch.core.predictor import SpeedPredictor
+
+        self.predictor = SpeedPredictor(N, trained, device=dev)
+        self.observed, self.last = observed, None
+
+    def __call__(self, it):
+        if it:
+            self.predictor.observe(self.observed[it - 1])
+        self.last = self.predictor.predict()
+        return self.last
+
+
+class IterClock:
+    """``on_iter`` for a workload loop: each iteration's time on the host's
+    clock, the card synchronised at both ends, then ``check(it, x, y)``
+    outside the timed span."""
+
+    def __init__(self, check):
+        self.check, self.ms = check, []
+        self.restart()
+
+    def restart(self) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def __call__(self, it, x, y) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - self.t0) * 1e3)
+        self.check(it, x, y)
+        self.restart()
+
+    def summary(self) -> dict:
+        ms = sorted(self.ms)
+        return dict(iter_ms_median=statistics.median(ms), iter_ms_min=ms[0], iter_ms_max=ms[-1])
+
+
+def hold_round(label, cm, a32, coded, x, speeds, design, compare) -> dict:
+    """Each kernel of a workload's coded product against its plain version on
+    the workload's own card tensors: the encode it ran (``coded``) against
+    ``mds_encode_plain`` on the same blocks, then one round's
+    ``coded_matvec`` and ``mds_decode_into`` on the tables Algorithm 1
+    gives for ``speeds``, with the workload's last iterate ``x`` scaled.
+    Returns the largest error by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coding import pad_rows
+    from repro_torch.core.s2c2 import general_allocation
+    from repro_torch.kernels import coded_matvec as cmv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mds_decode import mds_decode_into_plain
+    from repro_torch.kernels.mds_encode import mds_encode_plain
+
+    n, rows, d = coded.shape
+    rpc, dev = rows // CHUNKS, coded.device
+    errs, scale = {}, {}
+
+    def hold(name, label_, got, want):
+        errs[name] = compare(f"{label} {label_}", got, want, F32_TOL)
+        scale[name] = float(want.abs().max())
+
+    g = torch.as_tensor(cm.code.generator, dtype=torch.float32, device=dev)
+    hold("mds_encode", f"mds_encode ({K}, {rows}, {d})", coded,
+         mds_encode_plain(g, pad_rows(a32, K * CHUNKS).view(K, rows, d)))
+    torch.cuda.empty_cache()
+    begin, count, weights, responders = cm.plan_tables(general_allocation(speeds, K, CHUNKS))
+    ids, gather = cm._index_tables(np.asarray(begin), np.asarray(count),
+                                   np.asarray(responders))
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    gather = torch.as_tensor(gather, dtype=torch.int32, device=dev)
+    # x at a largest entry of 1, so that the tolerance's absolute part is
+    # relative to the product's scale (PageRank's r has entries near 1/n)
+    view, x = coded.view(n * rows, d), (x / x.abs().max()).float()
+    expect(f"{label}: coded_matvec's design", cmv.design_of(view, x), design)
+    parts = ops.coded_matvec(view, x, ids, rpc)
+    hold("coded_matvec", f"coded_matvec {design}, nb = {ids.numel()}, br = {rpc}, d = {d}",
+         parts, cmv.coded_matvec_plain(view, x, ids, rpc))
+    out = torch.empty(K, CHUNKS, rpc, device=dev)
+    hold("mds_decode", f"mds_decode_into ({CHUNKS}, {K}, {K}) x {rpc}",
+         ops.mds_decode_into(weights, parts, gather, out.transpose(0, 1)),
+         mds_decode_into_plain(weights, parts, gather, torch.empty_like(out).transpose(0, 1)))
+    print(f"{label}: kernels against their plain versions on the workload's tensors, max abs "
+          "err " + ", ".join(f"{name} {e:.3e} (largest entry {scale[name]:.3e})"
+                             for name, e in errs.items()) + f" (rtol = atol = {F32_TOL})",
+          flush=True)
+    return errs
+
+
+def train_step(dev, compare) -> tuple:
+    """(a): the predictor trained on the card from the JAX package's start
+    (``convert.INIT_PARAMS``), each epoch one sequence launch under grad,
+    held to the JAX package's trained parameters (the committed ones); the
+    sequence kernel held to its plain version on the training window; then
+    a few epochs all plain on the card and on the CPU, for their time.
+    Returns the trained parameters and the step's record."""
+    import torch
+
+    from repro_torch.convert import INIT_PARAMS, load_params
+    from repro_torch.core.predictor import _adam_update, lstm_apply, mape, train_predictor
+    from repro_torch.core.traces import TraceConfig, sample_traces, train_test_split
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lstm_cell import lstm_sequence_plain
+
+    traces = sample_traces(TraceConfig(**PRED_TRACES), seed=PRED_SEED)
+    train, test = train_test_split(traces)
+    start = load_params(INIT_PARAMS, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, metrics = train_predictor(traces, epochs=PRED_EPOCHS, device=dev, init=start)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = ops.design_counts()["lstm_cell"]
+    expect("workloads (a): the predictor's launches in training", launches,
+           {"sequence": PRED_EPOCHS + 2, "cell": 0})
+
+    def window(arr):
+        return (torch.as_tensor(arr[:-1], dtype=torch.float32, device=dev)[:, :, None]
+                .contiguous(), torch.as_tensor(arr[1:], dtype=torch.float32, device=dev))
+
+    def test_mape(model) -> float:
+        xs, tg = window(test)
+        with torch.no_grad():
+            return float(mape(lstm_apply(model, xs)[:, :, 0], tg))
+
+    committed_params = load_params(device=dev)
+    untrained, committed = test_mape(start), test_mape(committed_params)
+    mape_err = abs(metrics["test_mape"] - committed) / committed
+    param_err = max(float((p.detach() - q.detach()).abs().max()) for p, q in
+                    zip(params.parameters(), committed_params.parameters()))
+    if not metrics["test_mape"] < untrained or mape_err > PRED_MAPE_RTOL:
+        raise RuntimeError(f"workloads (a): test MAPE {metrics['test_mape']:.6f} after training "
+                           f"from the JAX package's start; its own training gives "
+                           f"{committed:.6f} (relative {mape_err:.3e} > {PRED_MAPE_RTOL}), "
+                           f"untrained {untrained:.6f}")
+    xs_tr, tg_tr = window(train)
+    named = [params.w_ih, params.w_hh, params.b, params.w_out, params.b_out]
+    with torch.no_grad():
+        seq_err = compare(f"workloads (a) lstm_cell sequence, the training window (T = "
+                          f"{xs_tr.shape[0]}, B = {xs_tr.shape[1]})",
+                          ops.lstm_sequence(xs_tr, *named), lstm_sequence_plain(xs_tr, *named),
+                          F32_TOL)
+
+    # a few epochs from the same start with lstm_sequence_plain forward and
+    # backward, on the card and on the CPU: what a backward kernel would save
+    def all_plain(device) -> float:
+        model = load_params(INIT_PARAMS, device=device)
+        opt = tuple({n: torch.zeros_like(p)
+                     for n, p in model.named_parameters()} for _ in range(2))
+        xs, tg = xs_tr.to(device), tg_tr.to(device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(PLAIN_EPOCHS):
+            named_p = dict(model.named_parameters())
+            loss = torch.mean((lstm_sequence_plain(xs, *named_p.values())[:, :, 0] - tg) ** 2)
+            grads = dict(zip(named_p, torch.autograd.grad(loss, list(named_p.values()))))
+            model, opt = _adam_update(model, grads, opt, step)
+        float(loss.detach())
+        return (time.perf_counter() - t0) / PLAIN_EPOCHS * 1e3
+
+    rec = dict(train_s=train_s, epoch_ms=train_s / PRED_EPOCHS * 1e3,
+               plain_card_epoch_ms=all_plain(dev), plain_cpu_epoch_ms=all_plain("cpu"),
+               plain_epochs=PLAIN_EPOCHS, untrained_test_mape=untrained,
+               committed_test_mape=committed, test_mape_err=mape_err, param_err=param_err,
+               sequence_err=seq_err, launches=launches, **metrics)
+    print(f"workloads (a) predictor training, {PRED_EPOCHS} epochs over ({len(traces)}, "
+          f"{traces.shape[1]}) traces (T = {len(train) - 1}, B = {traces.shape[1]}) from the JAX "
+          f"package's start: kernel forward, plain backward on the card {train_s:.2f} s "
+          f"({rec['epoch_ms']:.2f} ms an epoch, the two evaluations included); all plain over "
+          f"{PLAIN_EPOCHS} epochs: {rec['plain_card_epoch_ms']:.2f} ms an epoch on the card, "
+          f"{rec['plain_cpu_epoch_ms']:.2f} ms on the CPU; final train loss "
+          f"{metrics['final_train_loss']:.7f}; test MAPE {metrics['test_mape']:.6f} (the JAX "
+          f"package's training {committed:.6f}, relative {mape_err:.3e}, tol {PRED_MAPE_RTOL}; "
+          f"parameters {param_err:.3e} from its; untrained {untrained:.4f}; last value "
+          f"{metrics['last_value_test_mape']:.4f}); launches {launches}", flush=True)
+    return params, rec
+
+
+def regression_step(dev, trained, compare) -> tuple:
+    """(b): logistic regression and the SVM by ``coded_gradient_descent``,
+    A·w coded through ``CodedMatvec`` and planned from the trained
+    predictor, Aᵀ·g a float32 ``torch.matmul``; every iteration's coded A·w
+    held to the float64 product, each descent to the same one in float64
+    on the card, and the kernels to their plain versions on the data.
+    Returns the first rows of the data, the logistic weights and the last
+    forecast, for (e), and the step's record."""
+    import torch
+
+    from repro_torch.core.coded_matmul import CodedMatvec
+    from repro_torch.core.coding import MDSCode
+    from repro_torch.core.traces import controlled_traces
+    from repro_torch.data.pipeline import make_lr_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import coded_gradient_descent, gd_gradient
+
+    t0 = time.perf_counter()
+    (a_np, y_np, _), rss = host_peak(lambda: make_lr_dataset(rows=LR_ROWS, cols=LR_COLS,
+                                                             seed=0))
+    make_s = time.perf_counter() - t0
+    keep = (a_np[:GC_BATCH].copy(), y_np[:GC_BATCH].copy())
+    a64 = torch.from_numpy(a_np).to(dev)
+    del a_np
+    a32, y64 = a64.float(), torch.from_numpy(y_np).to(dev)
+    y32 = y64.float()
+    ops.reset_launch_counts()
+    cm = CodedMatvec(MDSCode(N, K), CHUNKS, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coded = cm.shard(a32)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    traces = controlled_traces(N, LR_ITERS, n_stragglers=1, seed=3)
+    step = LR_STEP / LR_ROWS
+    rec, forecast, w_logistic, worst_ax = {}, None, None, 0.0
+
+    def hinge_objective(w_) -> float:
+        """What the SVM's descent minimises, in float64."""
+        w_ = w_.double()
+        return float(torch.clamp(1 - y64 * (a64 @ w_), min=0).sum() + 0.5e-3 * (w_ @ w_))
+
+    def check_ax(it, w_, ax):
+        nonlocal worst_ax
+        err = rel_err(ax, a64 @ w_.double())
+        if not err <= REL_ERR_LIMIT:
+            raise RuntimeError(f"workloads (b) iteration {it}: coded A·w {err:.3e} from float64 "
+                               f"> {REL_ERR_LIMIT}")
+        worst_ax = max(worst_ax, err)
+
+    for loss in ("logistic", "hinge"):
+        speeds = Forecast(trained, traces, dev)
+        clock = IterClock(check_ax)
+        w = coded_gradient_descent(cm, coded, a32, y32, loss, LR_ITERS, speeds, lr=LR_STEP,
+                                   on_iter=clock)
+        # the same descent uncoded, in float64 and in float32
+        w64 = torch.zeros(LR_COLS, dtype=torch.float64, device=dev)
+        w32 = torch.zeros(LR_COLS, device=dev)
+        for it in range(LR_ITERS):
+            w64 = w64 - step * gd_gradient(loss, a64, y64, w64, a64 @ w64)
+            w32 = w32 - step * gd_gradient(loss, a32, y32, w32, a32 @ w32)
+        if not torch.isfinite(w).all():
+            raise RuntimeError(f"workloads (b) {loss}: non-finite weights")
+        err, err32 = rel_err(w, w64), rel_err(w32, w64)
+        acc = float(((a32 @ w > 0) * 2 - 1 == y32).float().mean())
+        acc64 = float(((a64 @ w64 > 0) * 2 - 1 == y64).double().mean())
+        if not acc > 0.8 or abs(acc - acc64) > 0.005:
+            raise RuntimeError(f"workloads (b) {loss}: accuracy {acc:.4f} (float64 "
+                               f"{acc64:.4f}; need > 0.8 and within 0.005)")
+        # the hinge's subgradient jumps where a margin crosses 1, and float32
+        # margins cross it elsewhere than float64 ones: the SVM is held to
+        # its objective, the logistic loss to its weights
+        obj = obj64 = obj_err = None
+        if loss == "logistic" and err > 1e-3:
+            raise RuntimeError(f"workloads (b) logistic: w against float64 {err:.3e} > 1e-3")
+        if loss == "hinge":
+            obj, obj64 = hinge_objective(w), hinge_objective(w64)
+            obj_err = abs(obj - obj64) / obj64
+            if obj_err > SVM_OBJECTIVE_RTOL:
+                raise RuntimeError(f"workloads (b) hinge: objective {obj:.6f} against float64 "
+                                   f"{obj64:.6f}, relative {obj_err:.3e} > {SVM_OBJECTIVE_RTOL}")
+        rec[loss] = dict(err=err, err_uncoded_float32=err32, accuracy=acc, accuracy64=acc64,
+                         objective=obj, objective64=obj64, objective_err=obj_err,
+                         **clock.summary())
+        print(f"workloads (b) {loss}: {LR_ITERS} coded iterations, median "
+              f"{rec[loss]['iter_ms_median']:.3f} ms (min {rec[loss]['iter_ms_min']:.3f}, max "
+              f"{rec[loss]['iter_ms_max']:.3f}); w against float64 {err:.3e} (uncoded float32: "
+              f"{err32:.3e}); accuracy {acc:.4f} (float64 {acc64:.4f})"
+              + ("" if obj is None else f"; objective {obj:.6f}, float64 {obj64:.6f}, relative "
+                 f"{obj_err:.3e} (tol {SVM_OBJECTIVE_RTOL})"), flush=True)
+        if loss == "logistic":
+            forecast, w_logistic = speeds.last, w
+    counts, designs = ops.launch_counts(), ops.design_counts()
+    expect("workloads (b): launches", {n: counts[n] for n in ("coded_matvec", "mds_decode",
+                                                              "mds_encode")},
+           {"coded_matvec": 2 * LR_ITERS, "mds_decode": 2 * LR_ITERS, "mds_encode": 1})
+    expect("workloads (b): coded_matvec launches by design", designs["coded_matvec"],
+           {"stream": 2 * LR_ITERS, "multi": 0, "general": 0})
+    expect("workloads (b): the predictor's launches", designs["lstm_cell"],
+           {"sequence": 2 * (LR_ITERS - 1), "cell": 0})
+    rec.update(make_s=make_s, host_gb=rss, encode_ms=encode_s * 1e3, launches=counts,
+               ax_err=worst_ax, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    rec["kernel_errs"] = hold_round("workloads (b)", cm, a32, coded, w_logistic, forecast,
+                                    "stream", compare)
+    print(f"workloads (b): make_lr_dataset({LR_ROWS}, {LR_COLS}) {make_s:.1f} s, host resident "
+          f"memory {rss[0]:.2f} GB before it and {rss[1]:.2f} GB at its peak; encode "
+          f"{encode_s * 1e3:.3f} ms; coded state {coded.numel() * 4 / 1e9:.2f} GB; card peak "
+          f"{rec['peak_gb']:.1f} GB; every coded A·w within {worst_ax:.3e} of float64; "
+          f"launches {counts}, by design {designs}", flush=True)
+    return keep, w_logistic, forecast, rec
+
+
+def gradient_code_step(dev, keep, w, forecast) -> dict:
+    """(e): the logistic gradient over a batch of the (b) data, partitioned
+    by ``balanced_part_sizes`` from the (b) forecast, each group's coded
+    gradient from ``encode_local`` on the card, decoded from live sets of
+    n - s groups."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.gradient_coding import CyclicGradientCode
+
+    gc = CyclicGradientCode(n=N, s=GC_S)
+    sizes = gc.balanced_part_sizes(np.asarray(forecast), GC_BATCH)
+    edges = np.concatenate([[0], np.cumsum(sizes)])
+    a64 = torch.from_numpy(keep[0]).to(dev)
+    y64 = torch.from_numpy(keep[1]).to(dev)
+    a32, y32 = a64.float(), y64.float()
+
+    def logistic_grad(a, y, w_):
+        return a.T @ (-y / (1 + torch.exp(y * (a @ w_))))
+
+    parts = torch.stack([logistic_grad(a32[lo:hi], y32[lo:hi], w)
+                         for lo, hi in zip(edges[:-1], edges[1:])])
+    coded = torch.stack([gc.encode_local(parts[gc.window(g)], g) for g in range(N)])
+    want = logistic_grad(a64, y64, w.double())
+    rng = np.random.default_rng(5)
+    worst, live_sets = 0.0, []
+    while len(live_sets) < GC_LIVE_SETS:
+        dead = set(rng.choice(N, GC_S, replace=False).tolist())
+        live = [g for g in range(N) if g not in dead]
+        if live in live_sets:
+            continue
+        live_sets.append(live)
+        wts = torch.as_tensor(gc.decode_weights(live), device=dev)
+        got = (wts[:, None] * coded.double()).sum(0)
+        err = rel_err(got, want)
+        if not torch.isfinite(got).all() or err > 1e-3:
+            raise RuntimeError(f"workloads (e): decode from {live}: error {err:.3e} > 1e-3")
+        worst = max(worst, err)
+    print(f"workloads (e) gradient coding: CyclicGradientCode({N}, {GC_S}) over {GC_BATCH} rows "
+          f"in partitions of {sizes.tolist()} rows; {len(live_sets)} live sets "
+          f"{live_sets}: worst error {worst:.3e}", flush=True)
+    return dict(sizes=sizes.tolist(), live_sets=live_sets, err=worst)
+
+
+def general_in_turns(label, coded, rpc, d, compare, in_turns, dev) -> dict:
+    """``coded_matvec``'s general design on a workload's coded state, k·C
+    blocks of rpc rows, in turns with ``torch.matmul`` on the same rows
+    gathered beforehand and with the plain version."""
+    import torch
+
+    from repro_torch.kernels import coded_matvec as cmv
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    a = coded.view(-1, d)
+    ids = torch.randperm(N * CHUNKS, generator=gen, device=dev)[: K * CHUNKS].to(torch.int32)
+    x = torch.randn(d, generator=gen, device=dev)
+    nb = ids.numel()
+    sel = a.view(N * CHUNKS, rpc, d)[ids.long()].reshape(-1, d)
+    if cmv.design_of(a, x) != "general":
+        raise RuntimeError(f"{label}: the shape does not take the general design")
+    err = compare(f"coded_matvec general, {label}", cmv.coded_matvec_general(a, x, ids, rpc),
+                  cmv.coded_matvec_plain(a, x, ids, rpc), F32_TOL)
+    versions = {"general": lambda: cmv.coded_matvec_general(a, x, ids, rpc),
+                "torch.matmul on pre-gathered rows": lambda: torch.matmul(sel, x),
+                "plain": lambda: cmv.coded_matvec_plain(a, x, ids, rpc)}
+    names = list(versions)
+    times = in_turns(f"coded_matvec general, {label}", versions, names + names[::-1])
+    best = {name: min(t["device_ms"]) for name, t in times.items()}
+    call = {name: statistics.median(t["call_ms"]) for name, t in times.items()}
+    b_ms, b_by = bound_ms(4 * (nb * rpc * d + d + nb + nb * rpc), 2 * nb * rpc * d)
+    lib = best["torch.matmul on pre-gathered rows"]
+    print(f"coded_matvec general, {label}: bound {b_ms:.4f} ms ({b_by}); best device ms: "
+          + ", ".join(f"{name} {t:.4f}" for name, t in best.items())
+          + f"; general at {b_ms / best['general'] * 100:.1f} % of the bound, "
+          f"{best['general'] / lib:.3f}x torch.matmul; max abs err {err:.3e} (tol {F32_TOL})",
+          flush=True)
+    return dict(name=f"coded_matvec (general design, {label})", route="cuda",
+                source="src/repro_torch/kernels/csrc/coded_matvec.cu",
+                replaces=KERNELS["coded_matvec"], launches=0, max_abs_err=err,
+                ms=best["general"], plain_ms=best["plain"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, device_ms=best["general"], call_ms=call["general"],
+                plain_device_ms=best["plain"], plain_call_ms=call["plain"],
+                library_device_ms=lib, library_call_ms=call["torch.matmul on pre-gathered rows"],
+                library=f"torch.matmul on pre-gathered rows, ({nb * rpc}, {d}) @ ({d},)",
+                design="general", shape=f"({N * CHUNKS * rpc}, {d}) float32, nb = {nb}, "
+                                        f"br = {rpc}")
+
+
+def graph_step(dev, trained, compare, in_turns) -> tuple:
+    """(c): ``pagerank`` and a 3-hop ``graph_filter``, each matvec coded and
+    planned from the trained predictor, every iteration's coded product
+    held to the float64 one and the result to the float64 iteration on the
+    card, the kernels to their plain versions on the data; the general
+    design timed at both shapes.  Returns the general design's two records
+    and the step's record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coded_matmul import CodedMatvec
+    from repro_torch.core.coding import MDSCode
+    from repro_torch.core.traces import controlled_traces
+    from repro_torch.data.pipeline import laplacian_matrix, make_graph
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import graph_filter, pagerank
+
+    def build():
+        adj = make_graph(PR_NODES, PR_DEGREE, seed=1)
+        col = adj.sum(0, keepdims=True)
+        m = adj / np.maximum(col, 1)
+        m[:, col[0] == 0] = 1.0 / PR_NODES          # dangling columns: uniform
+        return m, laplacian_matrix(adj[:FILTER_NODES, :FILTER_NODES])
+
+    t0 = time.perf_counter()
+    (m_np, lap_np), rss = host_peak(build)
+    make_s = time.perf_counter() - t0
+    traces = controlled_traces(N, PR_ITERS, n_stragglers=2, seed=7)
+    cm = CodedMatvec(MDSCode(N, K), CHUNKS, device=dev)
+    rec, general, launches = {}, [], {}
+    for name, mat_np, n_it in (("pagerank", m_np, PR_ITERS), ("filter", lap_np, FILTER_HOPS)):
+        ops.reset_launch_counts()
+        n = mat_np.shape[0]
+        m64 = torch.from_numpy(mat_np).to(dev)
+        m32 = m64.float()
+        coded = cm.shard(m32)
+        rpc = coded.shape[1] // CHUNKS
+        speeds = Forecast(trained, traces, dev)
+        ref = {"x64": None, "worst": 0.0}
+
+        def check(it, x_, y_):
+            """The coded product against float64 on the same input; the
+            float64 iteration advanced beside it."""
+            err = rel_err(y_, m64 @ x_.double())
+            if not err <= REL_ERR_LIMIT:
+                raise RuntimeError(f"workloads (c) {name} iteration {it}: coded product "
+                                   f"{err:.3e} from float64 > {REL_ERR_LIMIT}")
+            ref["worst"] = max(ref["worst"], err)
+            x64 = x_.double() if ref["x64"] is None else ref["x64"]
+            ref["x64"] = ((1 - PR_DAMPING) / n + PR_DAMPING * (m64 @ x64) if name == "pagerank"
+                          else m64 @ x64)
+
+        clock = IterClock(check)
+        if name == "pagerank":
+            x = pagerank(cm, coded, n, n_it, speeds, damping=PR_DAMPING, on_iter=clock)
+        else:
+            x0 = torch.as_tensor(np.random.default_rng(0).standard_normal(n), device=dev)
+            ref["x64"] = x0
+            clock.restart()
+            x = graph_filter(cm, coded, x0, n_it, speeds, on_iter=clock)
+        if not torch.isfinite(x).all():
+            raise RuntimeError(f"workloads (c) {name}: non-finite values")
+        err = rel_err(x, ref["x64"])
+        if err > 1e-4:
+            raise RuntimeError(f"workloads (c) {name}: error {err:.3e} > 1e-4")
+        counts, designs = ops.launch_counts(), ops.design_counts()
+        expect(f"workloads (c) {name}: launches",
+               {k_name: counts[k_name] for k_name in ("coded_matvec", "mds_decode", "mds_encode")},
+               {"coded_matvec": n_it, "mds_decode": n_it, "mds_encode": 1})
+        expect(f"workloads (c) {name}: coded_matvec launches by design",
+               designs["coded_matvec"], {"stream": 0, "multi": 0, "general": n_it})
+        expect(f"workloads (c) {name}: the predictor's launches", designs["lstm_cell"],
+               {"sequence": n_it - 1, "cell": 0})
+        for k_name, v in counts.items():
+            launches[k_name] = launches.get(k_name, 0) + v
+        rec[name] = dict(n=n, err=err, product_err=ref["worst"], **clock.summary())
+        print(f"workloads (c) {name}: ({n}, {n}) float32, coded ({N}, {coded.shape[1]}, {n}) "
+              f"{coded.numel() * 4 / 1e9:.2f} GB; {n_it} coded iterations, median "
+              f"{rec[name]['iter_ms_median']:.3f} ms (min {rec[name]['iter_ms_min']:.3f}, max "
+              f"{rec[name]['iter_ms_max']:.3f}); error {err:.3e}, every coded product within "
+              f"{ref['worst']:.3e} of float64; launches {counts}, by design {designs}",
+              flush=True)
+        rec[name]["kernel_errs"] = hold_round(f"workloads (c) {name}", cm, m32, coded, x,
+                                              speeds.last, "general", compare)
+        general.append(general_in_turns(name, coded, rpc, n, compare, in_turns, dev))
+        general[-1]["launches"] = counts["coded_matvec"]
+        del m64, m32, coded
+        torch.cuda.empty_cache()
+    expect("workloads (c): launches", {k_name: launches[k_name]
+                                       for k_name in ("coded_matvec", "mds_decode")},
+           {"coded_matvec": PR_ITERS + FILTER_HOPS, "mds_decode": PR_ITERS + FILTER_HOPS})
+    del m_np, lap_np
+    rec.update(make_s=make_s, host_gb=rss, launches=launches)
+    print(f"workloads (c): make_graph({PR_NODES}, {PR_DEGREE}), the transition matrix and the "
+          f"Laplacian {make_s:.1f} s, host resident memory {rss[0]:.2f} GB before and "
+          f"{rss[1]:.2f} GB at the peak; launches {rec['launches']}", flush=True)
+    return general, rec
+
+
+def hessian_step(dev, call_ms) -> dict:
+    """(d): the Hessian AᵀDA on a polynomial code, decoded from 9 of its 12
+    nodes, held to the float64 product on the card."""
+    import torch
+
+    from repro_torch.core.polynomial import PolynomialCode
+
+    pc = PolynomialCode(n=N, a=3, b=3)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randn(HESSIAN, HESSIAN, generator=gen, device=dev)
+    diag = torch.rand(HESSIAN, generator=gen, device=dev) + 0.5     # uniform in [0.5, 1.5]
+    got = pc.full_product(a, a, diag, nodes=POLY_NODES)
+    a64 = a.double()
+    want = a64.T @ (diag.double()[:, None] * a64)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"workloads (d): shape {tuple(got.shape)} or non-finite values")
+    err = rel_err(got, want)
+    if err > 1e-3:
+        raise RuntimeError(f"workloads (d): Hessian error {err:.3e} > 1e-3")
+    coded_ms = call_ms(lambda: pc.full_product(a, a, diag, nodes=POLY_NODES))
+    f64_ms = call_ms(lambda: a64.T @ (diag.double()[:, None] * a64))
+    print(f"workloads (d) Hessian AᵀDA, ({HESSIAN}, {HESSIAN}) float32, PolynomialCode({N}, "
+          f"3, 3) from nodes {POLY_NODES}: {coded_ms:.3f} ms a product (encode, 9 node "
+          f"products, decode); float64 on the card {f64_ms:.3f} ms; error {err:.3e}",
+          flush=True)
+    return dict(err=err, ms=coded_ms, float64_ms=f64_ms)
+
+
+def workloads_phase(dev, call_ms, compare, in_turns) -> tuple:
+    """Phase 6.  Returns the general design's records, the launches over the
+    phase's workloads by record name (``coded_matvec``: the stream design's),
+    and the phase's record."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    trained, rec_a = train_step(dev, compare)
+    torch.cuda.reset_peak_memory_stats()
+    keep, w, forecast, rec_b = regression_step(dev, trained, compare)
+    torch.cuda.empty_cache()
+    rec_e = gradient_code_step(dev, keep, w, forecast)
+    del keep, w
+    torch.cuda.empty_cache()
+    general, rec_c = graph_step(dev, trained, compare, in_turns)
+    rec_d = hessian_step(dev, call_ms)
+    torch.cuda.empty_cache()
+    launches = {name: rec_b["launches"].get(name, 0) + rec_c["launches"].get(name, 0)
+                for name in ops.launch_counts()}
+    launches["lstm_cell"] += sum(rec_a["launches"].values())
+    # coded_matvec by design: (b) all stream, (c) all general
+    launches["coded_matvec (multi design)"] = 0
+    launches["coded_matvec"] = rec_b["launches"]["coded_matvec"]
+    for rec in general:
+        launches[rec["name"]] = rec["launches"]
+    return general, launches, dict(train=rec_a, regression=rec_b, graph=rec_c, hessian=rec_d,
+                                   gradient_code=rec_e)
 
 
 def main() -> int:
@@ -935,8 +1556,20 @@ def main() -> int:
     for name, rec in records.items():
         rec["cluster_launches"] = cluster_counts.get(name, 0)
 
+    # -- 6. the paper's workloads ---------------------------------------------
+    t0 = time.perf_counter()
+    general_records, workload_counts, workloads = workloads_phase(dev, call_ms, compare,
+                                                                  in_turns)
+    print(f"workloads phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for rec in list(records.values()) + [multi_record]:
+        rec["workload_launches"] = workload_counts[rec["name"]]
+    for rec in general_records:
+        rec["workload_launches"] = rec["launches"]
+
+    print(json.dumps({"workloads": workloads}))
     print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))
-    print(json.dumps({"kernels": [records[name] for name in KERNELS] + [multi_record]}))
+    print(json.dumps({"kernels": [records[name] for name in KERNELS] + [multi_record]
+                      + general_records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,6 +7,15 @@ initialisation cannot be reproduced in PyTorch, so parameters cross over
 as numbers: :func:`params_from_jax` takes such a dict of numpy arrays and
 returns the port's :class:`~repro_torch.core.predictor.LSTMPredictor`.
 
+The port also trains its own (``repro_torch.core.predictor.train_predictor``,
+on the card by default).  A port-trained ``LSTMPredictor`` is a drop-in for
+:func:`load_params`: it has the same parameter names and shapes, goes
+straight into ``SpeedPredictor``, and its ``named_parameters()`` as numpy
+arrays are a dict that :func:`params_from_jax` takes back.  From the same
+initial parameters the port's training reaches the JAX package's metrics;
+from its own ``torch.Generator`` start it lands elsewhere, as another
+``jax.random`` key would.
+
 ``data/lstm_predictor.json`` holds the trained parameters the main path
 uses.  They were produced, from the root of the checkout, with the JAX
 package's own training call of ``benchmarks/fig_predictor.py``::
@@ -19,6 +28,19 @@ package's own training call of ``benchmarks/fig_predictor.py``::
         drift_sigma=0.05), seed=7), epochs=300); \\
     json.dump({k: np.asarray(v).tolist() for k, v in p.items()}, \\
         open('src/repro_torch/data/lstm_predictor.json', 'w'), indent=1)"
+
+``data/lstm_predictor_init.json`` (:data:`INIT_PARAMS`) holds that
+training's start, the JAX package's ``init_lstm(LSTMParams(),
+PRNGKey(0))``, made the same way::
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import json, jax, numpy as np; \\
+    from repro.core.predictor import LSTMParams, init_lstm; \\
+    p = init_lstm(LSTMParams(), jax.random.PRNGKey(0)); \\
+    json.dump({k: np.asarray(v).tolist() for k, v in p.items()}, \\
+        open('src/repro_torch/data/lstm_predictor_init.json', 'w'), indent=1)"
+
+``train_predictor(..., init=load_params(INIT_PARAMS))`` on those traces
+reaches the committed parameters' metrics.
 """
 
 from __future__ import annotations
@@ -32,9 +54,10 @@ import torch
 
 from repro_torch.core.predictor import LSTMParams, LSTMPredictor
 
-__all__ = ["DEFAULT_PARAMS", "params_from_jax", "load_params", "load_params_numpy"]
+__all__ = ["DEFAULT_PARAMS", "INIT_PARAMS", "params_from_jax", "load_params", "load_params_numpy"]
 
 DEFAULT_PARAMS = Path(__file__).resolve().parent / "data" / "lstm_predictor.json"
+INIT_PARAMS = DEFAULT_PARAMS.with_name("lstm_predictor_init.json")
 _NAMES = ("w_ih", "w_hh", "b", "w_out", "b_out")
 
 

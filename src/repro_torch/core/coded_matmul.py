@@ -30,11 +30,17 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.coding import MDSCode
+from repro_torch.core.coding import MDSCode, pad_rows
 from repro_torch.core.s2c2 import Allocation
 from repro_torch.kernels import ops
 
-__all__ = ["CodedMatvec", "masked_partial_products", "oracle_matvec"]
+__all__ = ["CodedMatvec", "coded_partition_shards", "masked_partial_products",
+           "oracle_matvec"]
+
+
+def coded_partition_shards(code: MDSCode, a: torch.Tensor) -> torch.Tensor:
+    """Encode A into (n, D/k, d) stacked coded partitions, on a's device, once."""
+    return code.encode(a)
 
 
 def _chunk_mask(begin, count, chunks: int) -> torch.Tensor:
@@ -79,13 +85,15 @@ class CodedMatvec:
 
     # -- data placement -----------------------------------------------------
     def shard(self, a: torch.Tensor) -> torch.Tensor:
-        """Encode: (D, d) -> (n, rows, d) on the device, rows % chunks == 0."""
-        coded = self.code.encode(a.to(self.device))
-        pad = (-coded.shape[1]) % self.chunks
-        if pad:
-            coded = torch.cat([coded, coded.new_zeros(
-                (coded.shape[0], pad, coded.shape[2]))], dim=1)
-        return coded
+        """Encode: (D, d) -> (n, rows, d) on the device, rows % chunks == 0.
+
+        A gets zero rows up to a multiple of k·C before the encode, as the
+        cluster's ``CodedData`` pads, so that ``apply``'s y keeps A's row
+        order with the padding at its end.  (The JAX package's
+        ``CodedMatvec.shard`` pads each coded partition to a multiple of C
+        instead, which puts padding between the data blocks' products in y.)
+        """
+        return self.code.encode(pad_rows(a.to(self.device), self.code.k * self.chunks))
 
     # -- planning (host) ----------------------------------------------------
     def plan_tables(self, alloc: Allocation):
@@ -131,8 +139,8 @@ class CodedMatvec:
         """Compute A @ x from the coded partitions under an S²C² allocation.
 
         coded: (n, rows, d) from :meth:`shard`; x: (d,); the other arguments
-        are :meth:`plan_tables`' output.  Returns y: (k·rows,), the
-        original (padded) product, in x's dtype.
+        are :meth:`plan_tables`' output.  Returns y: (k·rows,), A @ x in
+        A's row order followed by the padding's zeros, in x's dtype.
         """
         n, rows, d = coded.shape
         if x.shape != (d,):

@@ -32,6 +32,7 @@ __all__ = [
     "encode_blocks",
     "encode_matrix",
     "decode_matrix",
+    "decode_from_any_k",
     "pad_rows",
     "split_rows",
 ]
@@ -141,6 +142,21 @@ def decode_matrix(g: np.ndarray, workers: Sequence[int]) -> np.ndarray:
     return np.linalg.solve(sub, np.eye(k, dtype=np.float64))
 
 
+def decode_from_any_k(g_sub: torch.Tensor, results: torch.Tensor) -> torch.Tensor:
+    """Recover the k data-block products from k coded results.
+
+    g_sub: (k, k) generator rows of the responding workers.
+    results: (k, rows, ...) coded partial products  Ã_w x.
+    Returns (k, rows, ...) = the uncoded block products A_i x, in results'
+    dtype; solved in float64 when g_sub is float64, else in float32.
+    """
+    k = results.shape[0]
+    dtype = torch.float64 if g_sub.dtype == torch.float64 else torch.float32
+    flat = results.reshape(k, -1).to(dtype)
+    sol = torch.linalg.solve(g_sub.to(device=flat.device, dtype=dtype), flat)
+    return sol.reshape(results.shape).to(results.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MDSCode: the user-facing bundle
 # ---------------------------------------------------------------------------
@@ -190,6 +206,19 @@ class MDSCode:
     # -- decoding ----------------------------------------------------------
     def decode_matrix(self, workers: Sequence[int]) -> np.ndarray:
         return decode_matrix(self.generator, workers)
+
+    def decode(self, results: torch.Tensor, workers: Sequence[int]) -> torch.Tensor:
+        """results: (k, rows, ...) from the given k workers -> decoded blocks,
+        on results' device and in its dtype."""
+        dm = torch.as_tensor(self.decode_matrix(workers)).to(device=results.device,
+                                                             dtype=results.dtype)
+        flat = results.reshape(self.k, -1)
+        return (dm @ flat).reshape(results.shape)
+
+    def decode_concat(self, results: torch.Tensor, workers: Sequence[int]) -> torch.Tensor:
+        """Decode and concatenate blocks back into the original row order."""
+        blocks = self.decode(results, workers)
+        return blocks.reshape((-1,) + tuple(blocks.shape[2:]))
 
     # -- chunked (S²C²) decoding -------------------------------------------
     def _coverage_ids(self, coverage: np.ndarray) -> np.ndarray:

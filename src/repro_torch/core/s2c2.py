@@ -35,6 +35,7 @@ __all__ = [
     "general_allocation",
     "general_allocation_torch",
     "allocation_masks",
+    "coverage_counts",
     "expected_makespan",
 ]
 
@@ -78,6 +79,10 @@ def allocation_masks(begin: np.ndarray, count: np.ndarray, chunks: int) -> np.nd
     idx = np.arange(chunks)[None, :]                     # (1, C)
     rel = (idx - begin[:, None]) % chunks                # position within cycle
     return rel < count[:, None]
+
+
+def coverage_counts(alloc: Allocation) -> np.ndarray:
+    return alloc.coverage()
 
 
 # ---------------------------------------------------------------------------

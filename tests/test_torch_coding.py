@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cuda import cuda  # noqa: F401  (fixture)
+from _torch_cuda import cuda, jax_on_cpu  # noqa: F401  (fixtures)
 from repro.core import coding as jcoding
 from repro_torch.core import coding
+
+pytestmark = pytest.mark.usefixtures("jax_on_cpu")   # the JAX reference on the CPU
 
 torch.set_num_threads(1)   # small shapes; leave the cores to the timing-sensitive cluster tests
 
@@ -162,3 +164,112 @@ def test_pad_and_split_rows():
     assert coding.split_rows(p, 4).shape == (4, 2, 2)
     with pytest.raises(ValueError, match="not divisible"):
         coding.split_rows(a, 4)
+
+
+# -- the rest of the coding API: decode, decode_concat, decode_from_any_k,
+# coverage_counts, coded_partition_shards ------------------------------------
+
+def test_decode_concat_every_pattern():
+    """``tests/test_coding.py::TestEncodeDecode::test_roundtrip_every_pattern``
+    on the port, and against the JAX package's ``decode_concat`` of the same
+    partials (float32, 2e-4)."""
+    import itertools
+
+    import jax.numpy as jnp
+    code, jcode = coding.MDSCode(n=6, k=4), jcoding.MDSCode(n=6, k=4)
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((40, 8)).astype(np.float32)
+    x = rng.standard_normal((8,)).astype(np.float32)
+    partials = code.encode(torch.from_numpy(a)) @ torch.from_numpy(x)      # (6, 10)
+    want = a.astype(np.float64) @ x.astype(np.float64)
+    for workers in itertools.combinations(range(6), 4):
+        got = code.decode_concat(partials[list(workers)], list(workers))
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+        ref = jcode.decode_concat(jnp.asarray(partials[list(workers)].numpy()), list(workers))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+
+
+def test_decode_matrix_operand():
+    """``tests/test_coding.py::TestEncodeDecode::test_matrix_operand`` on the
+    port: a coded matmul decodes from workers given out of order."""
+    code = coding.MDSCode(n=5, k=3)
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((30, 6)).astype(np.float32))
+    xm = torch.from_numpy(rng.standard_normal((6, 7)).astype(np.float32))
+    partials = code.encode(a) @ xm                                          # (5, 10, 7)
+    blocks = code.decode(partials[[4, 2, 0]], [4, 2, 0])
+    assert blocks.shape == (3, 10, 7) and blocks.dtype == torch.float32
+    got = code.decode_concat(partials[[4, 2, 0]], [4, 2, 0])
+    np.testing.assert_allclose(got.numpy(), (a @ xm).numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_decode_of_float64_results_is_float64():
+    code, jcode = coding.MDSCode(n=5, k=3), jcoding.MDSCode(n=5, k=3)
+    rng = np.random.default_rng(2)
+    res = rng.standard_normal((3, 4, 2))
+    got = code.decode(torch.from_numpy(res), [1, 3, 4])
+    assert got.dtype == torch.float64
+    want = (jcode.decode_matrix([1, 3, 4]) @ res.reshape(3, -1)).reshape(res.shape)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError):
+        code.decode(torch.from_numpy(res), [1, 3])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_decode_from_any_k_matches_jax(dtype):
+    """Solved in float64 for a float64 ``g_sub``, else in float32, as the
+    reference chooses; with x64 off the JAX package solves in float32."""
+    import jax.numpy as jnp
+    code = coding.MDSCode(n=7, k=4)
+    rng = np.random.default_rng(3)
+    workers = [6, 1, 4, 2]
+    blocks = rng.standard_normal((4, 5, 3))
+    results = np.einsum("wk,krc->wrc", code.generator[workers], blocks)
+    g_sub = code.generator[workers].astype(dtype)
+    got = coding.decode_from_any_k(torch.from_numpy(g_sub), torch.from_numpy(results))
+    assert got.dtype == torch.float64 and got.shape == results.shape
+    if dtype == np.float64:
+        np.testing.assert_allclose(got.numpy(), blocks, rtol=1e-10, atol=1e-10)
+    else:
+        want = jcoding.decode_from_any_k(jnp.asarray(g_sub), jnp.asarray(results, jnp.float32))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(got.numpy(), blocks, rtol=2e-4, atol=2e-4)
+
+
+def test_coverage_counts_and_partition_shards_match_jax():
+    import jax.numpy as jnp
+    from repro.core import coded_matmul as jcm
+    from repro.core import s2c2 as js2c2
+    from repro_torch.core import coded_matmul
+    from repro_torch.core import s2c2
+    speeds = np.array([1.0, 0.9, 0.2, 1.0, 0.5, 0.95])
+    got = s2c2.coverage_counts(s2c2.general_allocation(speeds, 4, 12))
+    want = js2c2.coverage_counts(js2c2.general_allocation(speeds, 4, 12))
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 4).all()
+    a = np.random.default_rng(4).standard_normal((41, 9)).astype(np.float32)
+    shards = coded_matmul.coded_partition_shards(coding.MDSCode(6, 4), torch.from_numpy(a))
+    ref = jcm.coded_partition_shards(jcoding.MDSCode(6, 4), jnp.asarray(a))
+    assert tuple(shards.shape) == ref.shape == (6, 11, 9)
+    np.testing.assert_allclose(shards.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_and_partition_shards(cuda):
+    """The same API on the card: the shards through the encode kernel, the
+    decode on the card's tensors, against the CPU run."""
+    from repro_torch.core import coded_matmul
+    code = coding.MDSCode(n=6, k=4)
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((40, 8)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((8,)).astype(np.float32))
+    on_card = coded_matmul.coded_partition_shards(code, a.to(cuda))
+    on_cpu = coded_matmul.coded_partition_shards(code, a)
+    np.testing.assert_allclose(on_card.cpu().numpy(), on_cpu.numpy(), rtol=2e-4, atol=2e-4)
+    got = code.decode_concat((on_card @ x.to(cuda))[[5, 0, 3, 2]], [5, 0, 3, 2])
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), (a @ x).numpy(), rtol=2e-4, atol=2e-4)
+    g_sub = torch.as_tensor(code.generator[[5, 0, 3, 2]], device=cuda)
+    blocks = coding.decode_from_any_k(g_sub, (on_card @ x.to(cuda))[[5, 0, 3, 2]].double())
+    np.testing.assert_allclose(blocks.reshape(-1).cpu().numpy(), (a @ x).numpy(), rtol=2e-4,
+                               atol=2e-4)

@@ -1,0 +1,32 @@
+"""The port's examples run end to end on the CPU (``--device cpu``), each in
+a fresh interpreter, with the assertions their JAX counterparts make."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _run(name: str) -> str:
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / name), "--device", "cpu"],
+                         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    return out.stdout
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart.py", "torch_pagerank.py"])
+def test_example_runs_and_asserts(name):
+    assert _run(name).splitlines()[-1] == "OK"
+
+
+def test_coded_regression_example_runs():
+    out = _run("torch_coded_regression.py")
+    for loss in ("logistic", "hinge"):
+        line = next(ln for ln in out.splitlines() if ln.startswith(f"[{loss}] coded GD on cpu"))
+        assert float(line.rsplit("accuracy=", 1)[1]) > 0.8
+    assert "general-s2c2" in out

@@ -80,6 +80,28 @@ def test_default_device_entry_points_raise_without_a_card():
             make()
 
 
+def test_port_examples_import_neither_jax_nor_repro():
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) >= 3
+    bad = {p.name: sorted(_imported_roots(p) & set(FORBIDDEN)) for p in examples}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_workload_entry_points_default_to_the_card():
+    """The entry points this slice adds that place tensors default to the
+    card; the polynomial and gradient codes compute on their operands'
+    device and take none."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from repro_torch.core.predictor import LSTMParams, init_lstm, train_predictor
+    from repro_torch.core.traces import controlled_traces
+    traces = controlled_traces(4, 20, n_stragglers=1, seed=0)
+    for make in (lambda: init_lstm(LSTMParams(), torch.Generator()),
+                 lambda: train_predictor(traces, epochs=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
 def test_cuda_tensor_without_library_raises(monkeypatch):
     """Fake CUDA tensors (shapes and dtypes only) reach every kernel wrapper;
     with no nvcc the build raises, and the plain versions are never called."""

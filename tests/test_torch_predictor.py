@@ -13,13 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cuda import cuda  # noqa: F401  (fixture)
+from _torch_cuda import cuda, jax_on_cpu  # noqa: F401  (fixtures)
 from repro.core import predictor as jpred
 from repro_torch import convert
 from repro_torch.core import predictor
 from repro_torch.kernels import ops
 from repro_torch.core.s2c2 import general_allocation
 from repro_torch.core.traces import controlled_traces, sample_traces, TraceConfig
+
+pytestmark = pytest.mark.usefixtures("jax_on_cpu")   # the JAX reference on the CPU
 
 torch.set_num_threads(1)   # small shapes; leave the cores to the timing-sensitive cluster tests
 
@@ -263,3 +265,148 @@ def test_cuda_lstm_apply_with_grad(cuda):
     for name, g in got.items():
         np.testing.assert_allclose(g.cpu().numpy(), want[name].numpy(), **TOL)
     ops.reset_launch_counts()
+
+
+# -- training -----------------------------------------------------------------
+
+def _train_pairs(traces):
+    xs = traces[:-1].astype(np.float32)[:, :, None]
+    return xs, traces[1:].astype(np.float32)
+
+
+def test_loss_fn_matches_jax(params_np):
+    xs, tg = _train_pairs(sample_traces(TraceConfig(n_nodes=6, n_iters=60), seed=2))
+    with torch.no_grad():
+        got = predictor._loss_fn(_port(params_np), torch.from_numpy(xs), torch.from_numpy(tg))
+    want = jpred._loss_fn(_jax(params_np), jnp.asarray(xs), jnp.asarray(tg))
+    np.testing.assert_allclose(float(got), float(want), **TOL)
+
+
+def test_adam_steps_match_jax(params_np):
+    """20 steps of the port's ``_adam_step`` against the JAX package's, from
+    the same parameters and zero moments: the losses, parameters and both
+    moments after each step."""
+    xs, tg = _train_pairs(sample_traces(TraceConfig(n_nodes=6, n_iters=150), seed=1))
+    model = _port(params_np)
+    state = tuple({n: torch.zeros_like(p)
+                   for n, p in model.named_parameters()} for _ in range(2))
+    ref = _jax(params_np)
+    ref_state = (jax.tree.map(jnp.zeros_like, ref), jax.tree.map(jnp.zeros_like, ref))
+    xs_t, tg_t = torch.from_numpy(xs), torch.from_numpy(tg)
+    for step in range(20):
+        model, state, loss = predictor._adam_step(model, state, xs_t, tg_t, step)
+        ref, ref_state, ref_loss = jpred._adam_step(ref, ref_state, jnp.asarray(xs),
+                                                    jnp.asarray(tg), step)
+        np.testing.assert_allclose(float(loss), float(ref_loss), **TOL)
+        for name, p in model.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref[name]), **TOL)
+            for got, want in zip(state, ref_state):
+                np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), **TOL)
+
+
+def test_init_lstm_shapes_and_forget_bias():
+    cfg = predictor.LSTMParams(hidden=8, input_dim=3, output_dim=2)
+    model = predictor.init_lstm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    want = {k: np.asarray(v).shape for k, v in
+            jpred.init_lstm(jpred.LSTMParams(8, 3, 2), jax.random.PRNGKey(0)).items()}
+    assert shapes == want == {"w_ih": (32, 3), "w_hh": (32, 8), "b": (32,), "w_out": (2, 8),
+                              "b_out": (2,)}
+    b = model.b.detach().numpy()
+    np.testing.assert_array_equal(b[8:16], 1.0)
+    np.testing.assert_array_equal(np.delete(b, np.s_[8:16]), 0.0)
+    np.testing.assert_array_equal(model.b_out.detach().numpy(), 0.0)
+    # the weights' scale is 1/sqrt(H), as in the reference's draws
+    w = torch.cat([model.w_ih.flatten(), model.w_hh.flatten()]).detach().numpy()
+    assert 0.5 / np.sqrt(8) < w.std() < 1.5 / np.sqrt(8)
+    again = predictor.init_lstm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for (n, p), (_, q) in zip(model.named_parameters(), again.named_parameters()):
+        np.testing.assert_array_equal(p.detach().numpy(), q.detach().numpy())
+
+
+def test_training_reduces_loss_and_tracks():
+    """``tests/test_substrate.py::TestPredictor::test_training_reduces_loss_and_tracks``
+    on the port's ``train_predictor``."""
+    traces = sample_traces(TraceConfig(n_nodes=6, n_iters=150), seed=1)
+    params, metrics = predictor.train_predictor(traces, epochs=120, device="cpu")
+    assert metrics["test_mape"] < 0.5
+    assert np.isfinite(metrics["final_train_loss"])
+    assert isinstance(params, predictor.LSTMPredictor)
+    # the last-value baseline is the reference's, on the same split
+    _, jm = jpred.train_predictor(traces, epochs=0)
+    np.testing.assert_allclose(metrics["last_value_test_mape"], jm["last_value_test_mape"],
+                               rtol=1e-6)
+
+
+def test_train_predictor_from_the_references_start_matches_jax(monkeypatch):
+    """From the JAX package's initial parameters (``init_lstm(PRNGKey(0))``,
+    converted), the port's ``train_predictor`` reaches the reference's
+    metrics: only the random draws of the start differ between the two."""
+    traces = sample_traces(TraceConfig(n_nodes=6, n_iters=150), seed=1)
+    start = {k: np.asarray(v) for k, v in
+             jpred.init_lstm(jpred.LSTMParams(), jax.random.PRNGKey(0)).items()}
+    monkeypatch.setattr(predictor, "init_lstm",
+                        lambda cfg, generator, device: convert.params_from_jax(start, device))
+    _, got = predictor.train_predictor(traces, epochs=120, device="cpu")
+    _, want = jpred.train_predictor(traces, epochs=120)
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        np.testing.assert_allclose(got[key], value, **TOL)
+
+
+def test_committed_start_is_the_references_init():
+    """``data/lstm_predictor_init.json`` is the JAX package's
+    ``init_lstm(LSTMParams(), PRNGKey(0))``, bit for bit."""
+    want = jpred.init_lstm(jpred.LSTMParams(), jax.random.PRNGKey(0))
+    got = convert.load_params_numpy(convert.INIT_PARAMS)
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], np.asarray(value))
+
+
+def test_train_predictor_from_init_matches_jax():
+    """``train_predictor(init=...)`` from the committed start reaches the JAX
+    package's metrics and parameters, and leaves ``init`` as it was."""
+    traces = sample_traces(TraceConfig(n_nodes=6, n_iters=150), seed=1)
+    start = convert.load_params(convert.INIT_PARAMS, device="cpu")
+    before = {n: p.detach().clone() for n, p in start.named_parameters()}
+    params, got = predictor.train_predictor(traces, epochs=30, device="cpu", init=start)
+    jparams, want = jpred.train_predictor(traces, epochs=30)
+    for key, value in want.items():
+        np.testing.assert_allclose(got[key], value, **TOL)
+    for name, value in jparams.items():
+        np.testing.assert_allclose(getattr(params, name).detach().numpy(), np.asarray(value),
+                                   **TOL)
+    for name, p in start.named_parameters():
+        assert torch.equal(p.detach(), before[name])
+
+
+def test_trained_params_drive_the_speed_predictor():
+    """A port-trained model is a drop-in for ``load_params()``: it crosses
+    ``params_from_jax`` as numbers and predicts the same speeds."""
+    traces = sample_traces(TraceConfig(n_nodes=6, n_iters=60), seed=4)
+    params, _ = predictor.train_predictor(traces, epochs=5, device="cpu")
+    again = convert.params_from_jax({n: p.detach().numpy() for n, p in params.named_parameters()},
+                                    device="cpu")
+    a = predictor.SpeedPredictor(6, params, device="cpu")
+    b = predictor.SpeedPredictor(6, again, device="cpu")
+    for it in range(10):
+        np.testing.assert_array_equal(a.predict(), b.predict())
+        a.observe(traces[it])
+        b.observe(traces[it])
+
+
+@pytest.mark.cuda
+def test_cuda_training_matches_cpu(cuda):
+    """``train_predictor`` on the card: one sequence launch under grad per
+    epoch and one per evaluation, none of the per-step cell, and the CPU
+    run's metrics."""
+    traces = sample_traces(TraceConfig(n_nodes=6, n_iters=150), seed=1)
+    ops.reset_launch_counts()
+    params, metrics = predictor.train_predictor(traces, epochs=30, device=cuda)
+    assert ops.design_counts()["lstm_cell"] == {"sequence": 32, "cell": 0}
+    ops.reset_launch_counts()
+    assert params.w_ih.device.type == "cuda"
+    _, on_cpu = predictor.train_predictor(traces, epochs=30, device="cpu")
+    for key, value in on_cpu.items():
+        np.testing.assert_allclose(metrics[key], value, rtol=1e-3, atol=1e-5)

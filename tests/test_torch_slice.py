@@ -70,6 +70,24 @@ def test_slice_matches_jax_and_float64(config, speeds):
     assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
 
 
+@pytest.mark.parametrize("n,k,chunks,rows", [(5, 3, 6, 120), (12, 10, 20, 3277),
+                                             (4, 3, 8, 97)])
+def test_apply_keeps_the_row_order_when_partitions_are_padded(n, k, chunks, rows):
+    """D/k not a multiple of C (PageRank's 32,768 rows on the (12, 10) code
+    and C = 20 are such a D): y[:D] is still A @ x in A's row order."""
+    rng = np.random.default_rng(rows)
+    a = rng.standard_normal((rows, 8)).astype(np.float32)
+    x = rng.standard_normal(8).astype(np.float32)
+    cm = coded_matmul.CodedMatvec(coding.MDSCode(n, k), chunks, device="cpu")
+    coded = cm.shard(torch.from_numpy(a))
+    assert coded.shape[1] % chunks == 0 and coded.shape[1] * k >= rows
+    alloc = s2c2.general_allocation(np.linspace(0.3, 1.0, n), k, chunks)
+    y = cm.apply(coded, torch.from_numpy(x), *cm.plan_tables(alloc)).numpy()
+    assert y.shape == (k * coded.shape[1],)
+    np.testing.assert_allclose(y[:rows], coded_matmul.oracle_matvec(a, x), **TOL)
+    np.testing.assert_allclose(y[rows:], 0.0, **TOL)       # parity decodes leave rounding
+
+
 def test_masked_partial_products_matches_jax():
     rng = np.random.default_rng(0)
     part = rng.standard_normal((60, 16)).astype(np.float32)
