@@ -105,18 +105,50 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        shapes in turns against ``torch.matmul`` on the same rows gathered
        beforehand and the plain version;
    (d) the Hessian AᵀDA of a 6,000 × 6,000 matrix on a (12, a = b = 3)
-       polynomial code from 9 nodes, within 1e-3 of float64 on the card.
+       polynomial code from 9 nodes, within 1e-3 of float64 on the card;
+7. serving mistral-nemo-12b at full width and depth (40 layers, d_model
+   5,120, 12.2 B parameters, 24.5 GB in bfloat16, random weights from a
+   seed) through ``repro_torch.launch.serve``:
+   (a) ``main(["--coded-head"])``'s two steps, ``build`` and ``run``, with
+       the JAX package's defaults (6 requests, 8-token prompts, 8 new
+       tokens, max_batch 4) and the coded head's validation, its launches
+       counted from 0: exactly one ``mds_encode``, one ``coded_matvec``
+       (the multi design) and one ``mds_decode``, the coded head within
+       1e-3 of the dense product;
+   (b)-(d) the model of (a) kept, the same requests served with each
+       decode step between CUDA events (median beside its bound: the bytes
+       of the weights and the KV cache over 3.35 TB/s), tokens/s, and five
+       steps under ``torch.profiler`` for the kernels' time and the
+       device's idle share: smoke traffic, at a context of at most 16;
+   (d2) the same at a real context: 4 prompts of 2,048 tokens through
+       ``LM.prefill``, then 16 greedy decode steps between CUDA events and
+       five under the profiler;
+   (e) prefill of 12 tokens then one decode step against 13 decode steps
+       from scratch, within 5e-2 of the largest logit (bfloat16 through
+       40 layers);
+   (f)-(g) ``CodedLMHead`` over the float32 head ((6, 4) code, 8 chunks):
+       logits of x (2, 5,120) under speeds [1, 1, 0.2, 1, 1, 0.5] within
+       1e-3 of a float64 product on the card, one launch of each kernel
+       counted from 0 and each held to its plain version on the same
+       tensors; then the call's time against ``x @ head`` and the plain
+       versions, and the multi design at the head's shape in turns against
+       the plain version and three PyTorch calls (``torch.matmul`` and
+       ``F.linear`` on the assigned rows gathered beforehand, and the dense
+       ``x @ head``, which reads as many bytes); the fastest of the three is
+       the record's ``library_ms``.
 
 The last lines are the in-turn times as JSON, the per-kernel record as JSON
 (``ms``, ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the
 per-call times; ``launches`` the main path's, ``cluster_launches`` the
-cluster phase's, ``workload_launches`` phase 6's) and the device line.
-The record of ``coded_matvec``'s multi design, which only the cluster's
-``matmul`` rounds launch, is at a chunk's shape at B = 8, and its
+cluster phase's, ``workload_launches`` phase 6's, ``serve_launches`` phase
+7's entry point's) and the device line.
+The record of ``coded_matvec``'s multi design that the cluster's
+``matmul`` rounds launch is at a chunk's shape at B = 8, and its
 ``launches`` are the cluster phase's; the
 two records of the general design, which only phase 6 launches, are at
-PageRank's and the filter's shapes, with phase 6's launches.  Before them a
-JSON line holds phase 6's record.
+PageRank's and the filter's shapes, with phase 6's launches; the record of
+the multi design at the lm_head's shape has phase 7's.  Before them JSON
+lines hold phase 7's and phase 6's records.
 """
 
 from __future__ import annotations
@@ -164,6 +196,14 @@ PR_NODES, PR_DEGREE, PR_ITERS, PR_DAMPING = 32_768, 16, 40, 0.85
 FILTER_NODES, FILTER_HOPS = 16_384, 3
 HESSIAN, POLY_NODES = 6_000, [0, 1, 3, 4, 5, 7, 8, 9, 11]
 GC_S, GC_BATCH, GC_LIVE_SETS = 2, 24_000, 3
+# phase 7, serving: mistral-nemo-12b at full width and depth in bfloat16,
+# with the JAX package's serving defaults and coded-head stragglers
+SERVE_ARCH, SERVE_SPEEDS, PROFILED_STEPS = "mistral-nemo-12b", [1, 1, 0.2, 1, 1, 0.5], 5
+HANDOFF_REL = 5e-2              # bfloat16 prefill handoff, over the largest logit
+# a decode step at a real context: 4 prompts of 2,048 tokens through
+# LM.prefill, then greedy steps, each between CUDA events
+LONG_BATCH, LONG_CONTEXT, LONG_STEPS = 4, 2_048, 16
+BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense bfloat16 tensor cores
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -586,7 +626,6 @@ def hold_round(label, cm, a32, coded, x, speeds, design, compare) -> dict:
     ``coded_matvec`` and ``mds_decode_into`` on the tables Algorithm 1
     gives for ``speeds``, with the workload's last iterate ``x`` scaled.
     Returns the largest error by kernel."""
-    import numpy as np
     import torch
 
     from repro_torch.core.coding import pad_rows
@@ -609,10 +648,7 @@ def hold_round(label, cm, a32, coded, x, speeds, design, compare) -> dict:
          mds_encode_plain(g, pad_rows(a32, K * CHUNKS).view(K, rows, d)))
     torch.cuda.empty_cache()
     begin, count, weights, responders = cm.plan_tables(general_allocation(speeds, K, CHUNKS))
-    ids, gather = cm._index_tables(np.asarray(begin), np.asarray(count),
-                                   np.asarray(responders))
-    ids = torch.as_tensor(ids, dtype=torch.int32, device=dev)
-    gather = torch.as_tensor(gather, dtype=torch.int32, device=dev)
+    ids, gather = cm.device_tables(begin, count, responders, dev)
     # x at a largest entry of 1, so that the tolerance's absolute part is
     # relative to the product's scale (PageRank's r has entries near 1/n)
     view, x = coded.view(n * rows, d), (x / x.abs().max()).float()
@@ -1077,6 +1113,385 @@ def workloads_phase(dev, call_ms, compare, in_turns) -> tuple:
         launches[rec["name"]] = rec["launches"]
     return general, launches, dict(train=rec_a, regression=rec_b, graph=rec_c, hessian=rec_d,
                                    gradient_code=rec_e)
+
+# -- 7. serving a dense LM at full width ------------------------------------
+
+def decode_step_bound(cfg, n_params: int, embed_params: int, b: int, pos: int) -> tuple:
+    """The least time one decode step of ``b`` tokens at position ``pos``
+    takes: every weight but the embedding table read once (b of its rows),
+    the valid part of the KV cache read and one position written, the
+    logits written; against the bfloat16 peak for 2 operations a weight a
+    token.  Returns (ms, "bytes" or "operations")."""
+    item = 2                                  # bfloat16 weights and caches
+    kv = cfg.num_layers * 2 * b * cfg.kv_dim * item
+    n_bytes = ((n_params - embed_params) * item + b * cfg.d_model * item
+               + kv * (pos + 1) + kv + b * cfg.padded_vocab * 4)
+    flops = 2 * b * (n_params - embed_params) + 4 * cfg.num_layers * b * cfg.q_dim * (pos + 1)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_kernel_ms(fn, steps: int) -> tuple:
+    """Device time of the kernels ``fn`` launches, from ``torch.profiler``,
+    over ``steps`` calls: (busy ms a call, host ms a call, kernel launches a
+    call, the top kernels), or None where the profiler records no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def own(e) -> float:
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy_us = sum(own(e) for e in kernels)
+    if not busy_us:
+        return None
+    top = sorted(kernels, key=own, reverse=True)[:6]
+    return (busy_us / 1e3 / steps, host_ms, sum(e.count for e in kernels) / steps,
+            [(e.key[:60], e.count // steps, own(e) / 1e3 / steps) for e in top])
+
+
+def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
+    """Phase 7: ``repro_torch.launch.serve`` at full width and depth on the
+    card.  Returns the entry point's launches by record name, the record of
+    ``coded_matvec``'s multi design at the lm_head's shape, and the phase's
+    record."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coding import pad_rows
+    from repro_torch.core.s2c2 import general_allocation
+    from repro_torch.kernels import coded_matvec as cmv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mds_decode import mds_decode_into_plain
+    from repro_torch.kernels.mds_encode import mds_encode_plain
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.params import param_count, tree_bytes
+    from repro_torch.runtime.serve_loop import CodedLMHead, Request, ServeConfig, serve
+
+    rec = {}
+    # (a) the entry point, as a user runs it: the JAX package's defaults
+    # (6 requests, 8-token prompts, 8 new tokens, max_batch 4) and the coded
+    # head's validation; the launches counted from 0.  main(argv) is
+    # run(args, build(args)): the model is built once and kept for (b)-(e)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    args = launch_serve.parse_args(["--arch", SERVE_ARCH, "--coded-head"])
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        model = launch_serve.build(args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rc = launch_serve.run(args, model)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts, designs = ops.launch_counts(), ops.design_counts()["coded_matvec"]
+    print(log.getvalue(), end="", flush=True)
+    expect("phase 7: serve.main's exit code", rc, 0)
+    expect("phase 7: serve.main's launches", counts,
+           {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
+    expect("phase 7: serve.main's coded_matvec designs", designs,
+           {"stream": 0, "multi": 1, "general": 0})
+    main_err = float(re.search(r"rel_err=(\S+)", log.getvalue())[1])
+    if not main_err <= REL_ERR_LIMIT:
+        raise RuntimeError(f"phase 7: serve.main's coded head error {main_err} > {REL_ERR_LIMIT}")
+    if "6 requests, 48 tokens" not in log.getvalue():
+        raise RuntimeError("phase 7: serve.main did not serve 6 requests of 8 tokens")
+    rec.update(main_s=main_s, main_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               main_coded_head_err=main_err, main_launches=counts)
+    print(f"serve (a): launch.serve's build and run in {main_s:.1f} s, card peak "
+          f"{rec['main_peak_gb']:.1f} GB; launches {counts}, coded_matvec by design {designs}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (b) the model of (a), for its measurements
+    cfg = model.cfg
+    specs = model.specs()
+    n_params, n_bytes = param_count(specs), tree_bytes(specs)
+    embed_params = model.embed["embedding"].numel()
+    print(f"serve (b): {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params:,} parameters, {n_bytes / 1e9:.3f} GB ({cfg.dtype}, norms float32), "
+          f"built on the card from a seeded generator in {build_s:.2f} s", flush=True)
+
+    # (c) serve the requests of (a), each decode step between CUDA events
+    steps = []
+    decode_step = model.decode_step
+
+    def clocked(token, caches, pos):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = decode_step(token, caches, pos)
+        end.record()
+        steps.append((token.shape[0], pos, start, end))
+        return out
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=8).astype(np.int32),
+                    max_new=8) for i in range(6)]
+    model.decode_step = clocked
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve(model, reqs, ServeConfig(max_batch=4), device=dev)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    del model.decode_step
+    tokens = sum(len(v) for v in out.values())
+    if sorted(out) != list(range(6)) or any(
+            len(v) != 8 or not all(0 <= t < cfg.padded_vocab for t in v) for v in out.values()):
+        raise RuntimeError(f"phase 7: serve returned {out}")
+    same = all(f"request {rid}: {out[rid]}" in log.getvalue() for rid in range(3))
+    step_ms = [s.elapsed_time(e) for _, _, s, e in steps]
+    bounds = [decode_step_bound(cfg, n_params, embed_params, b, pos) for b, pos, _, _ in steps]
+    full = [i for i, (b, _, _, _) in enumerate(steps) if b == 4]
+    med = statistics.median(step_ms[i] for i in full)
+    bound = statistics.median(bounds[i][0] for i in full)
+    rec.update(serve_s=serve_s, tokens=tokens, tokens_per_s=tokens / serve_s,
+               step_ms_median=med, step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+               step_bound_ms=bound, step_bound_by=bounds[full[0]][1], steps=len(steps),
+               same_tokens_as_main=same)
+    print(f"serve (c), smoke traffic at a context of at most 16: "
+          f"{len(reqs)} requests, {tokens} tokens in {serve_s * 1e3:.1f} ms "
+          f"({tokens / serve_s:.1f} tokens/s), {len(steps)} decode steps; a step at B = 4 "
+          f"between CUDA events: median {med:.3f} ms (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f} over all steps) against a bound of {bound:.3f} ms "
+          f"({bounds[full[0]][1]}); the first 3 requests' tokens equal serve.main's: {same}",
+          flush=True)
+
+    # (d) the device's share of a step: the kernels of PROFILED_STEPS steps
+    # at B = 4, from the profiler
+    caches = model.init_cache(4, 16)
+    tok = torch.as_tensor(np.arange(1, 5)[:, None], device=dev)
+    pos = iter(range(16))
+    for _ in range(3):
+        model.decode_step(tok, caches, next(pos))
+    busy = device_kernel_ms(lambda: model.decode_step(tok, caches, next(pos)), PROFILED_STEPS)
+    if busy is None:
+        print("serve (d): the profiler recorded no device time: device busy share not measured",
+              flush=True)
+    else:
+        busy_ms, host_ms, n_kernels, top = busy
+        rec.update(step_device_busy_ms=busy_ms, step_profiled_ms=host_ms,
+                   step_kernel_launches=n_kernels, step_idle_share=1 - busy_ms / med,
+                   step_top_kernels=top)
+        print(f"serve (d): {PROFILED_STEPS} decode steps at B = 4 under the profiler: "
+              f"{n_kernels:.0f} kernel launches and {busy_ms:.3f} ms of kernels a step, so the "
+              f"device idles {1 - busy_ms / med:.1%} of (c)'s "
+              f"median step (a profiled step takes {host_ms:.3f} ms on the host's clock); "
+              "by kernel, launches and ms a step: " + "; ".join(
+                  f"{name} {n} {ms:.3f}" for name, n, ms in top), flush=True)
+    del caches
+
+    # (d2) a decode step at a real context: LONG_BATCH prompts of
+    # LONG_CONTEXT tokens through LM.prefill, then LONG_STEPS greedy steps
+    # between CUDA events, then PROFILED_STEPS under the profiler
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (LONG_BATCH, LONG_CONTEXT)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(toks, max_seq=LONG_CONTEXT + LONG_STEPS + PROFILED_STEPS)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cur = torch.argmax(logits, -1)[:, None]
+    long_steps = []
+    t0 = time.perf_counter()
+    for i in range(LONG_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, caches = model.decode_step(cur, caches, LONG_CONTEXT + i)
+        end.record()
+        long_steps.append((start, end))
+        cur = torch.argmax(logits, -1)[:, None]
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        raise RuntimeError("phase 7: a decode step at a context of "
+                           f"{LONG_CONTEXT} gave logits that are not finite")
+    long_ms = [s_.elapsed_time(e_) for s_, e_ in long_steps]
+    long_med = statistics.median(long_ms)
+    long_bound, long_by = decode_step_bound(cfg, n_params, embed_params, LONG_BATCH,
+                                            LONG_CONTEXT + LONG_STEPS // 2)
+    pos = iter(range(LONG_CONTEXT + LONG_STEPS, LONG_CONTEXT + LONG_STEPS + PROFILED_STEPS))
+    busy = device_kernel_ms(lambda: model.decode_step(cur, caches, next(pos)), PROFILED_STEPS)
+    rec.update(long_batch=LONG_BATCH, long_context=LONG_CONTEXT, long_prefill_s=prefill_s,
+               long_step_ms_median=long_med, long_step_ms_min=min(long_ms),
+               long_step_ms_max=max(long_ms), long_step_bound_ms=long_bound,
+               long_step_bound_by=long_by,
+               long_tokens_per_s=LONG_BATCH * LONG_STEPS / long_s)
+    line = (f"serve (d2): {LONG_BATCH} prompts of {LONG_CONTEXT} tokens: prefill "
+            f"{prefill_s * 1e3:.1f} ms on the host's clock; {LONG_STEPS} decode steps "
+            f"{LONG_BATCH * LONG_STEPS / long_s:.1f} tokens/s, a step between CUDA events "
+            f"median {long_med:.3f} ms (min {min(long_ms):.3f}, max {max(long_ms):.3f}) "
+            f"against a bound of {long_bound:.3f} ms ({long_by}, the KV cache included)")
+    if busy is not None:
+        busy_ms, _, n_kernels, top = busy
+        rec.update(long_step_device_busy_ms=busy_ms, long_step_idle_share=1 - busy_ms / long_med)
+        line += (f"; under the profiler {n_kernels:.0f} launches and {busy_ms:.3f} ms of kernels "
+                 f"a step, so the device idles {1 - busy_ms / long_med:.1%} of the median "
+                 "step; by kernel: " + "; ".join(f"{name} {n} {ms:.3f}" for name, n, ms in top))
+    print(line, flush=True)
+    del caches, logits, toks
+    torch.cuda.empty_cache()
+
+    # (e) the prefill handoff at full width, in bfloat16, against decoding
+    # from scratch: prefill 12 tokens, then one decode step
+    toks = torch.as_tensor(np.random.default_rng(3).integers(1, cfg.vocab_size, (1, 13)),
+                           device=dev)
+    _, caches = model.prefill(toks[:, :12], max_seq=13)
+    lg_a, _ = model.decode_step(toks[:, 12:13], caches, 12)
+    scratch = model.init_cache(1, 13)
+    for t in range(13):
+        lg_b, scratch = model.decode_step(toks[:, t:t + 1], scratch, t)
+    handoff = rel_err(lg_a, lg_b.double())
+    if not (torch.isfinite(lg_a).all() and handoff <= HANDOFF_REL):
+        raise RuntimeError(f"phase 7: prefill handoff error {handoff:.3e} > {HANDOFF_REL}")
+    rec.update(handoff_rel_err=handoff, handoff_argmax_equal=bool(
+        torch.equal(lg_a.argmax(-1), lg_b.argmax(-1))))
+    print(f"serve (e): prefill(12) then decode_step(12) against 13 decode steps from scratch, "
+          f"{cfg.dtype}: error {handoff:.3e} of the largest logit ({float(lg_b.abs().max()):.3f}; "
+          f"limit {HANDOFF_REL}); argmax equal: {rec['handoff_argmax_equal']}", flush=True)
+    del caches, scratch
+    head = model.embed["head"].detach().float()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+
+    # (f) the coded lm_head at its full shape: (6, 4) code, 8 chunks, float32
+    speeds = np.array(SERVE_SPEEDS)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, cfg.d_model)),
+                        dtype=torch.float32, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ch = CodedLMHead(head, n=6, k=4, chunks=8, device=dev)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    got = ch.logits(x, speeds)
+    torch.cuda.synchronize()
+    head_counts, head_designs = ops.launch_counts(), ops.design_counts()["coded_matvec"]
+    expect("phase 7: the coded head's launches (one encode, one logits call)", head_counts,
+           {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
+    expect("phase 7: the coded head's coded_matvec design", head_designs,
+           {"stream": 0, "multi": 1, "general": 0})
+    want = x.double() @ head.double()
+    head_err = rel_err(got, want)
+    if not (got.shape == (2, cfg.vocab_size) and head_err <= REL_ERR_LIMIT):
+        raise RuntimeError(f"phase 7: coded head {tuple(got.shape)}, error {head_err:.3e}")
+    del want
+    torch.cuda.empty_cache()
+    # each launch against its plain version on the same tensors
+    n_, rows, d = ch.coded.shape
+    rpc = rows // 8
+    g = torch.as_tensor(ch.code.generator, dtype=torch.float32, device=dev)
+    blocks = pad_rows(head.T, 4 * 8).reshape(4, rows, d).contiguous()
+    errs = {"mds_encode": compare("lm_head mds_encode (6, 4) x (4, 32768, 5120)", ch.coded,
+                                  mds_encode_plain(g, blocks), F32_TOL)}
+    torch.cuda.empty_cache()
+    begin, count, weights, responders = ch.cm.plan_tables(general_allocation(speeds, 4, 8))
+    ids, gather = ch.cm.device_tables(begin, count, responders, dev)
+    view, xt = ch.coded.view(n_ * rows, d), x.T.contiguous()
+    nb = ids.numel()
+    parts = cmv.coded_matvec_multi(view, xt, ids, rpc)
+    errs["coded_matvec"] = compare(f"lm_head coded_matvec multi, nb = {nb}, br = {rpc}, "
+                                   f"d = {d}, B = 2", parts,
+                                   cmv.coded_matvec_plain(view, xt, ids, rpc), F32_TOL)
+    flat = parts.reshape(nb, rpc * 2)
+
+    def y_out():
+        return torch.empty(4, 8, rpc * 2, device=dev).transpose(0, 1)
+
+    errs["mds_decode"] = compare(f"lm_head mds_decode_into (8, 4, 4) x {rpc * 2}",
+                                 ops.mds_decode_into(weights, flat, gather, y_out()),
+                                 mds_decode_into_plain(weights, flat, gather, y_out()), F32_TOL)
+    print(f"serve (f): coded lm_head (6, 4), 8 chunks, float32 ({n_}, {rows}, {d}): encode "
+          f"{encode_s * 1e3:.1f} ms on the host's clock; logits of x (2, {d}) under speeds "
+          f"{SERVE_SPEEDS}: error {head_err:.3e} of max |x·head| against float64 on the card "
+          f"(limit {REL_ERR_LIMIT}); launches {head_counts}; against their plain versions, max "
+          "abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol = atol = {F32_TOL})", flush=True)
+
+    # (g) times: the whole call on the host's clock, and the device work of
+    # the kernels against torch.matmul and the plain versions, in turns
+    sel = view.view(n_ * 8, rpc, d)[ids.long()].reshape(-1, d)
+    call = {"logits (kernels)": call_ms(lambda: ch.logits(x, speeds)),
+            "x @ head (torch.matmul)": call_ms(lambda: x @ head)}
+    versions = {
+        "kernels: coded_matvec multi + mds_decode_into":
+            lambda: ops.mds_decode_into(weights, cmv.coded_matvec_multi(view, xt, ids, rpc)
+                                        .reshape(nb, -1), gather, y_out()),
+        "x @ head (torch.matmul)": lambda: x @ head,
+        "plain versions": lambda: mds_decode_into_plain(
+            weights, cmv.coded_matvec_plain(view, xt, ids, rpc).reshape(nb, -1), gather, y_out()),
+    }
+    names = list(versions)
+    head_times = in_turns("lm_head logits, device work", versions, names + names[::-1])
+    # the library: each single PyTorch call that gives the same products from
+    # the same bytes, the assigned rows gathered beforehand in two layouts,
+    # and the dense head (the same 2.68 GB); the fastest is the record's
+    libraries = {"torch.matmul on pre-gathered rows": lambda: torch.matmul(sel, xt),
+                 "F.linear on pre-gathered rows": lambda: torch.nn.functional.linear(x, sel),
+                 "x @ head (dense)": lambda: x @ head}
+    kernel_versions = {"multi": lambda: cmv.coded_matvec_multi(view, xt, ids, rpc),
+                       **libraries,
+                       "plain": lambda: cmv.coded_matvec_plain(view, xt, ids, rpc)}
+    names = list(kernel_versions)
+    k_times = in_turns("coded_matvec multi, lm_head", kernel_versions, names + names[::-1])
+    best = {name: min(t["device_ms"]) for name, t in k_times.items()}
+    med_call = {name: statistics.median(t["call_ms"]) for name, t in k_times.items()}
+    library = min(libraries, key=best.get)
+    b_ms, b_by = bound_ms(4 * (nb * rpc * d + d * 2 + nb + nb * rpc * 2), 2 * nb * rpc * d * 2)
+    dec = timed(lambda: ops.mds_decode_into(weights, flat, gather, y_out()))
+    dec_b, _ = bound_ms(4 * (8 * 16 + 8 * 4 + 2 * nb * rpc * 2), 2 * 8 * 16 * rpc * 2)
+    enc = timed(lambda: ops.mds_encode(g, blocks))
+    enc_b, _ = bound_ms(4 * (24 + 10 * rows * d), 2 * 24 * rows * d)
+    dev_best = {name: min(t["device_ms"]) for name, t in head_times.items()}
+    rec.update(head_err=head_err, head_encode_s=encode_s, head_call_ms=call,
+               head_device_ms=dev_best, head_launches=head_counts,
+               head_kernel_vs_plain=errs, decode_device_ms=dec["device_ms"],
+               decode_bound_ms=dec_b, encode_device_ms=enc["device_ms"], encode_bound_ms=enc_b)
+    print(f"serve (g): lm_head logits call ms (median of {REPS}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in call.items()) + "; device work, best of two: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in dev_best.items()) + f"; coded_matvec multi {best['multi']:.4f} "
+        f"ms against a bound of {b_ms:.4f} ({b_by}, {b_ms / best['multi']:.1%}), " + ", ".join(
+            f"{name} {best[name]:.4f}" for name in libraries) + f" (fastest: {library}), plain "
+        f"{best['plain']:.4f}; mds_decode_into {dec['device_ms']:.4f} (bound {dec_b:.4f}); "
+        f"mds_encode of the head {enc['device_ms']:.4f} (bound {enc_b:.4f})", flush=True)
+    record = dict(name="coded_matvec (multi design, lm_head)", route="cuda",
+                  source="src/repro_torch/kernels/csrc/coded_matvec.cu",
+                  replaces=KERNELS["coded_matvec"], launches=counts["coded_matvec"],
+                  max_abs_err=errs["coded_matvec"], ms=best["multi"], plain_ms=best["plain"],
+                  bound_ms=b_ms, bound_by=b_by,
+                  library_ms=best[library],
+                  device_ms=best["multi"], call_ms=med_call["multi"],
+                  plain_device_ms=best["plain"], plain_call_ms=med_call["plain"],
+                  library_device_ms=best[library], library_call_ms=med_call[library],
+                  library=f"{library}: the fastest of " + ", ".join(
+                      f"{name} {best[name]:.4f} ms" for name in libraries)
+                  + f" (the gathered rows ({nb * rpc}, {d}), x (2, {d}))", design="multi",
+                  shape=f"lm_head: nb = {nb} blocks of {rpc} rows, d = {d}, float32, B = 2",
+                  cluster_launches=0, workload_launches=0)
+    del ch, head, blocks, sel, parts, flat
+    torch.cuda.empty_cache()
+    launches = {"coded_matvec": designs["stream"], "coded_matvec (multi design)": 0,
+                "mds_encode": counts["mds_encode"], "mds_decode": counts["mds_decode"],
+                "lstm_cell": counts["lstm_cell"], record["name"]: designs["multi"]}
+    return launches, record, rec
 
 
 def main() -> int:
@@ -1566,10 +1981,18 @@ def main() -> int:
     for rec in general_records:
         rec["workload_launches"] = rec["launches"]
 
+    # -- 7. serving a dense LM at full width ----------------------------------
+    t0 = time.perf_counter()
+    serve_counts, head_record, served = serve_phase(dev, call_ms, timed, compare, in_turns)
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for rec in list(records.values()) + [multi_record] + general_records + [head_record]:
+        rec["serve_launches"] = serve_counts.get(rec["name"], 0)
+
+    print(json.dumps({"serve": served}))
     print(json.dumps({"workloads": workloads}))
     print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))
     print(json.dumps({"kernels": [records[name] for name in KERNELS] + [multi_record]
-                      + general_records}))
+                      + general_records + [head_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Carry the JAX predictor's parameters into the port.
+"""Carry the JAX package's parameters into the port: the predictor's, and
+an LM's (:func:`lm_params_from_jax`).
 
 The JAX package keeps the LSTM predictor's parameters as a dict of arrays
 (``w_ih (4H, I)``, ``w_hh (4H, H)``, ``b (4H,)``, ``w_out (O, H)``,
@@ -47,14 +48,18 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Mapping
+from typing import TYPE_CHECKING, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.predictor import LSTMParams, LSTMPredictor
 
-__all__ = ["DEFAULT_PARAMS", "INIT_PARAMS", "params_from_jax", "load_params", "load_params_numpy"]
+if TYPE_CHECKING:
+    from repro_torch.models.lm import LM
+
+__all__ = ["DEFAULT_PARAMS", "INIT_PARAMS", "params_from_jax", "load_params", "load_params_numpy",
+           "lm_params_from_jax"]
 
 DEFAULT_PARAMS = Path(__file__).resolve().parent / "data" / "lstm_predictor.json"
 INIT_PARAMS = DEFAULT_PARAMS.with_name("lstm_predictor_init.json")
@@ -93,3 +98,64 @@ def load_params(path: str | Path = DEFAULT_PARAMS,
                 device: str | torch.device = "cuda") -> LSTMPredictor:
     """The committed (or given) JSON params as the port's module."""
     return params_from_jax(load_params_numpy(path), device=device)
+
+
+def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested dict of arrays as {"a/b/c": array}."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, name + "/"))
+        else:
+            out[name] = value
+    return out
+
+
+def lm_params_from_jax(params: Mapping, model: LM) -> LM:
+    """Copy the JAX package's LM parameters into ``model``, in place.
+
+    ``params`` is the tree of the JAX package's ``initialize(model.specs(),
+    key)`` with numpy arrays as leaves (float32 or bfloat16).  The JAX
+    package stacks each slot of the layer period over the periods:
+    ``slots/s{i}/...[p]`` is the port's layer ``p·plen + i``, and
+    ``rem/r{j}/...`` its layer ``n_periods·plen + j``.  Raises KeyError for a
+    name missing on either side and ValueError for a shape that differs.
+    Returns ``model``.
+    """
+    from repro_torch.models.lm import period_layout   # the LM stack only for LM users
+
+    flat = _flatten(params)
+    period, n_periods, _ = period_layout(model.cfg)
+    plen = len(period)
+    used = set()
+    with torch.no_grad():
+        for name, dst in model.named_parameters():
+            parts = name.split(".")
+            index = None
+            if parts[0] == "layers":
+                layer, rest = int(parts[1]), "/".join(parts[2:])
+                if layer < n_periods * plen:
+                    index, slot = divmod(layer, plen)
+                    key = f"slots/s{slot}/{rest}"
+                else:
+                    key = f"rem/r{layer - n_periods * plen}/{rest}"
+            else:
+                key = "/".join(parts)
+            if key not in flat:
+                raise KeyError(f"the JAX parameters have no {key} (the port's {name})")
+            src = np.asarray(flat[key])
+            if index is not None:
+                if src.ndim == 0 or src.shape[0] != n_periods:
+                    raise ValueError(f"{key} has shape {src.shape}, not {n_periods} stacked "
+                                     "periods")
+                src = src[index]
+            if src.shape != tuple(dst.shape):
+                raise ValueError(f"{key} has shape {src.shape}, the port's {name} "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.tensor(np.asarray(src, np.float32)).to(dst.dtype))
+            used.add(key)
+    extra = sorted(set(flat) - used)
+    if extra:
+        raise KeyError(f"the JAX parameters {extra} have no place in the port's {model.cfg.name}")
+    return model

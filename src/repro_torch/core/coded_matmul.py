@@ -33,6 +33,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.coding import MDSCode, pad_rows
 from repro_torch.core.s2c2 import Allocation
 from repro_torch.kernels import ops
+from repro_torch.kernels.coded_matvec import MAX_NVEC
 
 __all__ = ["CodedMatvec", "coded_partition_shards", "masked_partial_products",
            "oracle_matvec"]
@@ -133,36 +134,59 @@ class CodedMatvec:
             raise ValueError(f"a responder of chunk {c} was not assigned that chunk")
         return block_ids, offset[responders] + rel
 
+    def device_tables(self, begin, count, responders,
+                      device: str | torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`apply`'s index tables on ``device``, from :meth:`plan_tables`'
+        ``begin``, ``count`` and ``responders``: the assigned blocks' global
+        ids (nb,), for ``coded_matvec``, and each (chunk, responder)'s
+        position among them (chunks, k), for ``mds_decode_into``.  Both are
+        int32 views of one buffer, copied from pinned memory without a wait."""
+        C, k, device = self.chunks, self.code.k, torch.device(device)
+        block_ids, gather = self._index_tables(
+            np.asarray(begin, dtype=np.int64), np.asarray(count, dtype=np.int64),
+            np.asarray(responders, dtype=np.int64))
+        nb = block_ids.shape[0]
+        host = torch.empty(nb + C * k, dtype=torch.int32, pin_memory=device.type == "cuda")
+        host_np = host.numpy()
+        host_np[:nb] = block_ids
+        host_np[nb:] = gather.ravel()
+        tables = host.to(device, non_blocking=True)
+        return tables[:nb], tables[nb:].view(C, k)
+
     # -- apply (device) -------------------------------------------------------
     def apply(self, coded: torch.Tensor, x: torch.Tensor, begin, count,
               weights: torch.Tensor, responders) -> torch.Tensor:
         """Compute A @ x from the coded partitions under an S²C² allocation.
 
-        coded: (n, rows, d) from :meth:`shard`; x: (d,); the other arguments
-        are :meth:`plan_tables`' output.  Returns y: (k·rows,), A @ x in
-        A's row order followed by the padding's zeros, in x's dtype.
+        coded: (n, rows, d) from :meth:`shard`; x: (d,) or (d, B); the other
+        arguments are :meth:`plan_tables`' output.  Returns y: (k·rows,) or
+        (k·rows, B), A @ x in A's row order followed by the padding's zeros,
+        in x's dtype.  An x of more than ``MAX_NVEC`` columns is computed in
+        column groups of at most ``MAX_NVEC``, one ``coded_matvec`` launch
+        each, as the cluster's ``KernelBackend`` does; the decode is one
+        launch whatever B.
         """
         n, rows, d = coded.shape
-        if x.shape != (d,):
-            raise ValueError(f"x must have shape ({d},), got {tuple(x.shape)}")
+        if not (x.ndim in (1, 2) and x.shape[0] == d):
+            raise ValueError(f"x must have shape ({d},) or ({d}, B), got {tuple(x.shape)}")
         C, k = self.chunks, self.code.k
         rpc = rows // C
-        block_ids, gather = self._index_tables(
-            np.asarray(begin, dtype=np.int64), np.asarray(count, dtype=np.int64),
-            np.asarray(responders, dtype=np.int64))
-        nb = block_ids.shape[0]
-        # both tables in one int32 buffer, pinned so that the copy is async
-        host = torch.empty(nb + C * k, dtype=torch.int32,
-                           pin_memory=coded.device.type == "cuda")
-        host_np = host.numpy()
-        host_np[:nb] = block_ids
-        host_np[nb:] = gather.ravel()
-        tables = host.to(coded.device, non_blocking=True)
-        parts = ops.coded_matvec(coded.view(n * rows, d), x, tables[:nb], rpc)  # (nb, rpc)
-        y = torch.empty(k * rows, dtype=torch.float32, device=coded.device)
-        # data block i, chunk c, row r  ->  position i·rows + c·rpc + r
-        ops.mds_decode_into(weights, parts.float(), tables[nb:].view(C, k),
-                            y.view(k, C, rpc).transpose(0, 1))
+        ids, gather = self.device_tables(begin, count, responders, coded.device)
+        nb = ids.shape[0]
+        view = coded.view(n * rows, d)
+        if x.ndim == 1:
+            parts = ops.coded_matvec(view, x, ids, rpc)                      # (nb, rpc)
+        else:
+            groups = [ops.coded_matvec(view, x[:, c:c + MAX_NVEC].contiguous(), ids, rpc)
+                      for c in range(0, x.shape[1], MAX_NVEC)]             # (nb, rpc, ≤ 16)
+            parts = groups[0] if len(groups) == 1 else torch.cat(groups, dim=2)
+        cols = 1 if x.ndim == 1 else x.shape[1]
+        y = torch.empty((k * rows,) + tuple(x.shape[1:]), dtype=torch.float32,
+                        device=coded.device)
+        # data block i, chunk c, row r (and column b)  ->  position
+        # (i·rows + c·rpc + r)·B + b: each chunk's rpc·B values are contiguous
+        ops.mds_decode_into(weights, parts.float().reshape(nb, rpc * cols),
+                            gather, y.view(k, C, rpc * cols).transpose(0, 1))
         return y.to(x.dtype)
 
 

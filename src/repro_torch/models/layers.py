@@ -1,0 +1,360 @@
+"""Foundational layers: norms, RoPE, GQA attention (blockwise/flash-style),
+MLP variants, embeddings, as plain functions on tensors.
+
+The port of the JAX package's ``models/layers.py``; each function keeps its
+name, its arguments' layout and its arithmetic (dtypes, the float32
+accumulation of attention, the −1e30 mask).  Parameters come in as any
+mapping of names to tensors (a dict, or an ``nn.ParameterDict`` of
+:class:`repro_torch.models.lm.LM`).  No Pallas kernel is involved, so the
+projections are ``torch.matmul`` calls, as the JAX package leaves them to
+XLA.
+
+Two differences, neither in the numbers: ``attn_decode`` writes the new
+key and value into the cache in place (the JAX function returns new
+caches; a full-width cache is too large to copy every token), and a
+position outside a full-length cache raises where
+``jax.lax.dynamic_update_slice`` would clamp it onto the last slot.
+Cross-attention (encoder-decoder) is ported with ``models/encdec.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.params import ParamSpec
+
+Params = Mapping[str, torch.Tensor]
+
+DEFAULT_Q_BLOCK = 512
+DEFAULT_KV_BLOCK = 1024
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_spec(cfg: ArchConfig, d: Optional[int] = None) -> Dict[str, ParamSpec]:
+    d = d or cfg.d_model
+    if cfg.norm_type == "layernorm":
+        return {"scale": ParamSpec((d,), ("embed",), torch.float32, "ones"),
+                "bias": ParamSpec((d,), ("embed",), torch.float32, "zeros")}
+    return {"scale": ParamSpec((d,), ("embed",), torch.float32, "ones")}
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm, or layer norm where ``p`` has a bias; in float32, cast back."""
+    xf = x.float()
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_tables(positions: torch.Tensor, hd: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (1, S, 1, hd // 2) float32, for ``positions`` (S,)."""
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=positions.device) / half)
+    ang = positions[:, None].float() * freq                      # (S, half)
+    return torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
+
+
+def apply_rope(x: torch.Tensor, tables: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The half-split (not interleaved) rotation of x (B, S, H, hd)."""
+    cos, sin = tables
+    half = cos.shape[-1]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if 2 * half < x.shape[-1]:   # odd head_dim tail passes through
+        rot = torch.cat([rot, x[..., 2 * half:].to(rot.dtype)], dim=-1)
+    return rot.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (S,) integers, batch-free as in the JAX
+    package; angles in float32."""
+    return apply_rope(x, rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# Attention params
+# ---------------------------------------------------------------------------
+
+def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return {
+        "wq": ParamSpec((d, q), ("embed", "q_proj"), init="scaled_normal"),
+        "wk": ParamSpec((d, kv), ("embed", "kv_proj"), init="scaled_normal"),
+        "wv": ParamSpec((d, kv), ("embed", "kv_proj"), init="scaled_normal"),
+        "wo": ParamSpec((q, d), ("q_proj", "embed"), init="scaled_normal"),
+    }
+
+
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*groups, hd) by repetition (GQA)."""
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention core
+# ---------------------------------------------------------------------------
+
+def _pick_block(s: int, target: int) -> int:
+    """Largest divisor of ``s`` that is ≤ ``target``."""
+    d = min(target, s)
+    while s % d:
+        d -= 1
+    return max(d, 1)
+
+
+def _attend_block(q, k, kpos, qpos, causal: bool, window: int,
+                  softcap: float, scale: float):
+    """Masked float32 logits for one (q-block, kv-block) tile.
+
+    q: (B, H, qb, hd); k: (B, H, kvb, hd); qpos: (qb,), kpos: (kvb,).
+    """
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    return torch.where(mask[None, None], logits, torch.full_like(logits, -1e30))
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0,
+                        q_block: int = DEFAULT_Q_BLOCK,
+                        kv_block: int = DEFAULT_KV_BLOCK,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Memory-bounded attention.  q: (B, S, H, hd); k, v: (B, T, KV, hd).
+
+    An outer loop over query blocks and an inner loop over KV blocks with a
+    running max and denominator (the JAX package's two scans), so logits
+    are never materialised at (S × T).  ``window > 0`` restricts each query
+    to the previous ``window`` keys and the computation to the KV slice
+    that covers them.  ``q_offset`` is the absolute position of q[0].
+    """
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    groups = h // k.shape[2]
+    k = _repeat_kv(k, groups)
+    v = _repeat_kv(v, groups)
+    scale = 1.0 / math.sqrt(hd)
+
+    q_block = _pick_block(s, q_block)
+    kv_block = _pick_block(t, kv_block)
+
+    qt = q.transpose(1, 2)          # (B, H, S, hd)
+    kt = k.transpose(1, 2)          # (B, H, T, hd)
+    vt = v.transpose(1, 2)
+
+    if window > 0:
+        # KV slice that can ever be attended from one q block
+        span = window + q_block
+        span = -(-span // kv_block) * kv_block
+        span = min(span, t)
+    else:
+        span = t
+    n_kb = span // kv_block
+
+    blocks = []
+    for qi in range(s // q_block):
+        qpos = q_offset + qi * q_block + torch.arange(q_block, device=q.device)
+        qb = qt[:, :, qi * q_block:(qi + 1) * q_block]
+        if window > 0:
+            # earliest key this block can see, clamped so that the slice
+            # stays in range; the mask keeps the semantics exact
+            start = min(max(q_offset + qi * q_block - window + 1, 0), t - span)
+        else:
+            start = 0
+        m = torch.full((b, h, q_block), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, q_block), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, q_block, hd), dtype=torch.float32, device=q.device)
+        for kj in range(n_kb):
+            koff = start + kj * kv_block
+            kb = kt[:, :, koff:koff + kv_block]
+            vb = vt[:, :, koff:koff + kv_block]
+            kpos = koff + torch.arange(kv_block, device=q.device)
+            logits = _attend_block(qb, kb, kpos, qpos, causal, window, softcap, scale)
+            m_new = torch.maximum(m, logits.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p_ = torch.exp(logits - m_new[..., None])
+            l = l * alpha + p_.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p_, vb.float())
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        blocks.append(out.to(q.dtype))
+    return torch.cat(blocks, dim=2).transpose(1, 2)     # (B, S, H, hd)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: int, window: int = 0, softcap: float = 0.0,
+                     rotating: bool = False) -> torch.Tensor:
+    """Single-token attention against a cache.
+
+    q: (B, 1, H, hd); caches: (B, T, KV, hd); pos: the current absolute
+    position.  ``rotating`` means the cache is a circular buffer of size
+    T = window holding the last T tokens; only its unwritten prefix is
+    masked while pos < T.  Grouped-query attention folds the group into q,
+    so K and V are read once, never repeated.
+    """
+    b, _, h, hd = q.shape
+    t = k_cache.shape[1]
+    kvh = k_cache.shape[2]
+    groups = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, 1, kvh, groups, hd)
+    logits = torch.einsum("bokgd,btkd->bkgot", qg.float(), k_cache.float()) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    idx = torch.arange(t, device=q.device)
+    if rotating:
+        valid = idx < min(pos + 1, t)
+    else:
+        valid = idx <= pos
+        if window > 0:
+            valid &= idx > pos - window
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgot,btkd->bokgd", w.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (self-attention, optionally with cache)
+# ---------------------------------------------------------------------------
+
+def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, causal: bool,
+               local: bool, q_offset: int = 0) -> torch.Tensor:
+    """Full-sequence attention (train / prefill path)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    tables = rope_tables(q_offset + torch.arange(s, device=x.device), cfg.head_dim,
+                         cfg.rope_theta)
+    q = apply_rope(q, tables)
+    k = apply_rope(k, tables)
+    window = cfg.sliding_window if local else 0
+    out = blockwise_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.logit_softcap)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def attn_prefill_kv(p: Params, x: torch.Tensor,
+                    cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Produce the (K, V) cache contents for a prefill segment."""
+    _, k, v = _project_qkv(p, x, cfg)
+    k = rope(k, torch.arange(x.shape[1], device=x.device), cfg.rope_theta)
+    return k, v
+
+
+def attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Dict[str, torch.Tensor],
+                pos: int, *, local: bool,
+                tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token attention; cache: {"k": (B,T,KV,hd), "v": ...}, updated in
+    place and returned.  ``tables``: ``rope_tables`` of ``[pos]``, which a
+    decode step computes once for all its layers."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"attn_decode takes one token, got {s}")
+    q, k, v = _project_qkv(p, x, cfg)
+    if tables is None:
+        tables = rope_tables(torch.tensor([pos], device=x.device), cfg.head_dim,
+                             cfg.rope_theta)
+    q = apply_rope(q, tables)
+    k = apply_rope(k, tables)
+    t = cache["k"].shape[1]
+    rotating = local and t == cfg.sliding_window
+    slot = (pos % t) if rotating else pos
+    if not 0 <= slot < t:
+        raise ValueError(f"position {pos} is outside a cache of {t}")
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    window = cfg.sliding_window if local else 0
+    out = decode_attention(q, cache["k"], cache["v"], pos, window=window,
+                           softcap=cfg.logit_softcap, rotating=rotating)
+    y = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {
+            "wg": ParamSpec((d, f), ("embed", "mlp"), init="scaled_normal"),
+            "wu": ParamSpec((d, f), ("embed", "mlp"), init="scaled_normal"),
+            "wd": ParamSpec((f, d), ("mlp", "embed"), init="scaled_normal"),
+        }
+    return {
+        "wi": ParamSpec((d, f), ("embed", "mlp"), init="scaled_normal"),
+        "wd": ParamSpec((f, d), ("mlp", "embed"), init="scaled_normal"),
+    }
+
+
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    if cfg.mlp_type == "swiglu":
+        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    if cfg.mlp_type == "geglu":
+        return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) @ p["wd"]
+    if cfg.mlp_type == "squared_relu":
+        h = F.relu(x @ p["wi"])
+        return (h * h) @ p["wd"]
+    if cfg.mlp_type == "gelu":
+        return F.gelu(x @ p["wi"], approximate="tanh") @ p["wd"]
+    raise ValueError(f"unknown mlp_type {cfg.mlp_type}")
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    v, d = cfg.padded_vocab, cfg.d_model
+    out = {"embedding": ParamSpec((v, d), ("vocab", "embed"), init="normal")}
+    if not cfg.tie_embeddings:
+        out["head"] = ParamSpec((d, v), ("embed", "vocab"), init="scaled_normal")
+    return out
+
+
+def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["embedding"])
+
+
+def head_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits over ``padded_vocab``, unmasked, as in the JAX package."""
+    if cfg.tie_embeddings:
+        return x @ p["embedding"].T
+    return x @ p["head"]

@@ -1,0 +1,291 @@
+"""Decoder LM for the ``attn_mlp`` layer kind: the dense and vlm families.
+
+The port of the JAX package's ``models/lm.py`` for mistral-nemo-12b,
+mistral-large-123b, nemotron-4-340b (squared-ReLU, LayerNorm), gemma3-27b
+(local/global attention, GeGLU, softcap, tied embeddings) and internvl2-26b
+(the ``vit_stub`` projector).  :class:`LM` is an ``nn.Module`` holding its
+parameters on one device, one block per layer in an ``nn.ModuleList``.  The
+JAX package stacks the parameters of each slot of the layer period and
+scans over periods; the port runs the same layers in order, and
+``repro_torch.convert.lm_params_from_jax`` unstacks the JAX package's tree
+(``slots/s{i}[p]`` is layer ``p·plen + i``, ``rem/r{j}`` the tail).  The
+JAX package's sharding constraints are the identity without a mesh, so the
+single-card port has none.
+
+Paths:
+
+* ``forward_train`` and ``loss_fn`` — the full-sequence forward and the
+  causal LM loss (forward only here; training is ported later);
+* ``prefill`` — full-sequence forward that also emits per-layer decode
+  caches;
+* ``decode_step`` — one token over every layer with explicit caches, which
+  it updates in place.
+
+The other layer kinds (``attn_moe``, ``mamba``, ``mlstm``, ``slstm``) and
+the encoder-decoder raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them; nothing runs in their place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamSpec, cast_specs, initialize
+
+__all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "not_ported"]
+
+Params = Dict[str, Any]
+
+# the ROADMAP.md §1 item that ports each block kind the slice leaves out
+_NOT_PORTED = {
+    "attn_moe": "models/moe.py, ROADMAP.md §1 item 1",
+    "mamba": "models/ssm.py, ROADMAP.md §1 item 1",
+    "mlstm": "models/ssm.py, ROADMAP.md §1 item 1",
+    "slstm": "models/ssm.py, ROADMAP.md §1 item 1",
+    "encdec": "models/encdec.py, ROADMAP.md §1 item 1",
+}
+
+
+def not_ported(what: str, cfg: ArchConfig) -> NotImplementedError:
+    return NotImplementedError(f"{cfg.name}: {what} is not ported to PyTorch yet "
+                               f"({_NOT_PORTED[what]})")
+
+
+# ---------------------------------------------------------------------------
+# Period layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    kind: str          # attn_mlp | attn_moe | mamba | mlstm | slstm
+    local: bool        # attention locality (static per slot)
+    shared_attn: bool  # zamba: run the shared attention block before this slot
+
+
+def period_layout(cfg: ArchConfig) -> Tuple[List[Slot], int, List[Slot]]:
+    """Returns (period_slots, n_periods, remainder_slots)."""
+    kinds = cfg.layer_kinds()
+    nl = cfg.num_layers
+    if cfg.family == "ssm" and cfg.slstm_every:
+        plen = cfg.slstm_every
+    elif cfg.family == "hybrid" and cfg.shared_attn_every:
+        plen = cfg.shared_attn_every
+    elif cfg.attn_pattern == "local_global":
+        plen = cfg.local_global_ratio + 1
+    else:
+        plen = 1
+    plen = min(plen, nl)
+
+    def slot_for(i: int) -> Slot:
+        return Slot(
+            kind=kinds[i],
+            local=cfg.attn_layer_is_local(i),
+            shared_attn=(cfg.shared_attn_every > 0
+                         and i % cfg.shared_attn_every == 0),
+        )
+
+    n_periods = nl // plen
+    period = [slot_for(i) for i in range(plen)]
+    remainder = [slot_for(n_periods * plen + j)
+                 for j in range(nl - n_periods * plen)]
+    return period, n_periods, remainder
+
+
+def layer_slots(cfg: ArchConfig) -> List[Slot]:
+    """The slot of each of the ``num_layers`` layers, in order."""
+    period, n_periods, remainder = period_layout(cfg)
+    plen = len(period)
+    return [period[l % plen] if l < n_periods * plen else remainder[l - n_periods * plen]
+            for l in range(cfg.num_layers)]
+
+
+# ---------------------------------------------------------------------------
+# Per-block specs / apply
+# ---------------------------------------------------------------------------
+
+def block_specs(cfg: ArchConfig, slot: Slot) -> Dict[str, Any]:
+    if slot.kind != "attn_mlp":
+        raise not_ported(slot.kind, cfg)
+    return {"norm1": L.norm_spec(cfg), "attn": L.attn_specs(cfg),
+            "norm2": L.norm_spec(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def block_apply(p, x: torch.Tensor, cfg: ArchConfig, slot: Slot) -> torch.Tensor:
+    """Full-sequence (train) path for one block."""
+    h = L.apply_norm(p["norm1"], x)
+    x = x + L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local)
+    return x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+
+
+def _module(tree) -> nn.Module:
+    """A dict of tensors as an ``nn.ParameterDict``; a dict of such dicts as
+    an ``nn.ModuleDict``."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+class LM(nn.Module):
+    """The decoder LM of ``cfg`` with its parameters on ``device``.
+
+    ``device`` is the card by default and raises where there is none; pass
+    ``"cpu"`` for the CPU, or ``"meta"`` for shapes and counts without
+    allocation.  Parameters are drawn by :func:`~repro_torch.models.params.
+    initialize` from ``generator`` (a ``torch.Generator`` on ``device``;
+    seed 0 when None), in ``cfg.dtype`` with norms in float32.
+    """
+
+    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = torch.device(device)
+        if dev.type != "meta":
+            dev = resolve_device(dev)
+        self.cfg = cfg
+        self.slots = layer_slots(cfg)
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(0)
+        params = initialize(self.specs(), generator, dev)
+        self.embed = _module(params["embed"])
+        self.final_norm = _module(params["final_norm"])
+        self.layers = nn.ModuleList(_module(p) for p in params["layers"])
+        if "projector" in params:
+            self.projector = _module(params["projector"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["embedding"].device
+
+    # -- parameter specs -----------------------------------------------------
+    def specs(self) -> Params:
+        """The spec tree: one block per layer under ``"layers"`` (the JAX
+        package stacks them per slot of the period; the leaves and their
+        count are the same)."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            raise not_ported("encdec", cfg)
+        out: Params = {"embed": L.embed_specs(cfg), "final_norm": L.norm_spec(cfg),
+                       "layers": [block_specs(cfg, slot) for slot in layer_slots(cfg)]}
+        if cfg.frontend == "vit_stub":
+            out["projector"] = {
+                "w": ParamSpec((cfg.frontend_dim, cfg.d_model),
+                               ("unsharded", "embed"), init="scaled_normal")}
+        return cast_specs(out, getattr(torch, cfg.dtype))
+
+    # -- embedding of (tokens [, image embeds]) ------------------------------
+    def _embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        x = L.embed_apply(self.embed, batch["tokens"])
+        if self.cfg.frontend == "vit_stub":
+            img = batch["image_embeds"].to(x.dtype) @ self.projector["w"]
+            x = torch.cat([img, x], dim=1)
+        return x
+
+    # -- training forward -----------------------------------------------------
+    def forward_train(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Returns logits (B, S_total, vocab_padded), float32."""
+        cfg = self.cfg
+        x = self._embed_inputs(batch)
+        for slot, p in zip(self.slots, self.layers):
+            x = block_apply(p, x, cfg, slot)
+        x = L.apply_norm(self.final_norm, x)
+        return L.head_apply(self.embed, x, cfg).float()
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Causal LM loss on the text tokens (image prefix excluded)."""
+        logits = self.forward_train(batch)
+        if self.cfg.frontend == "vit_stub":
+            logits = logits[:, batch["image_embeds"].shape[1]:]
+        tgt = batch["labels"][:, 1:]
+        lg = logits[:, :-1]
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
+        return (lse - gold).mean()
+
+    # -- caches ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int, dtype: Optional[torch.dtype] = None
+                   ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+        """Per-layer decode state; attention caches sized full or window."""
+        dtype = dtype or self.cache_dtype()
+        return [{"attn": self._attn_cache(batch, max_seq, slot.local, dtype)}
+                for slot in self.slots]
+
+    def cache_dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.dtype)
+
+    def _attn_cache(self, batch: int, max_seq: int, local: bool, dtype):
+        cfg = self.cfg
+        t = min(cfg.sliding_window, max_seq) if local else max_seq
+        shape = (batch, t, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    # -- decode ---------------------------------------------------------------
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, caches: List, pos: int
+                    ) -> Tuple[torch.Tensor, List]:
+        """token: (B, 1) integers; pos: the current absolute position.
+
+        Returns (logits (B, vocab_padded) float32, caches), the caches
+        updated in place.
+        """
+        cfg = self.cfg
+        x = L.embed_apply(self.embed, token)
+        tables = L.rope_tables(torch.tensor([pos], device=x.device), cfg.head_dim,
+                               cfg.rope_theta)
+        for slot, p, cache in zip(self.slots, self.layers, caches):
+            h = L.apply_norm(p["norm1"], x)
+            y, _ = L.attn_decode(p["attn"], h, cfg, cache["attn"], pos, local=slot.local,
+                                 tables=tables)
+            x = x + y
+            x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+        x = L.apply_norm(self.final_norm, x)
+        logits = L.head_apply(self.embed, x, cfg).float()
+        return logits[:, 0], caches
+
+    # -- prefill ---------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, image_embeds: Optional[torch.Tensor] = None,
+                max_seq: Optional[int] = None) -> Tuple[torch.Tensor, List]:
+        """Full forward emitting final-position logits + per-layer caches.
+
+        Attention caches are written full-length (local layers keep the last
+        ``window`` keys in rotating layout).  ``max_seq``: allocate global
+        caches at this length (> S) so decode can continue appending;
+        default = exactly S.
+        """
+        cfg = self.cfg
+        batch = {"tokens": tokens}
+        if image_embeds is not None:
+            batch["image_embeds"] = image_embeds
+        x = self._embed_inputs(batch)
+        s = x.shape[1]
+        caches: List[Any] = []
+        for slot, p in zip(self.slots, self.layers):
+            h = L.apply_norm(p["norm1"], x)
+            x = x + L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local)
+            k, v = L.attn_prefill_kv(p["attn"], h, cfg)
+            if slot.local and cfg.sliding_window < s:
+                w = cfg.sliding_window
+                # rotating layout: last w keys at slots (pos % w)
+                k = torch.roll(k[:, -w:], s % w, dims=1)
+                v = torch.roll(v[:, -w:], s % w, dims=1)
+            elif max_seq is not None and max_seq > s:
+                pad = (0, 0, 0, 0, 0, max_seq - s)
+                k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+            caches.append({"attn": {"k": k.to(self.cache_dtype()).contiguous(),
+                                    "v": v.to(self.cache_dtype()).contiguous()}})
+            x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+        x = L.apply_norm(self.final_norm, x)
+        logits = L.head_apply(self.embed, x[:, -1:], cfg)
+        return logits[:, 0].float(), caches

@@ -2,6 +2,8 @@
 
 * :mod:`repro_torch.runtime.elastic` — §4.4 failure detection and the
   elastic re-planning around dead workers.
+* :mod:`repro_torch.runtime.serve_loop` — batched LM serving and the
+  S²C²-coded lm_head.
 
 Nothing is imported here, so importing one module loads only what it needs.
 """

@@ -74,3 +74,7 @@ def test_apply_hands_the_kernels_one_packed_table(config, monkeypatch):
     # one buffer: the positions follow the block ids in the same storage
     assert table.untyped_storage().data_ptr() == ids.untyped_storage().data_ptr()
     assert table.data_ptr() == ids.data_ptr() + 4 * ids.numel()
+    # the public tables, for a caller that holds one launch to its plain version
+    public = cm.device_tables(tables[0], tables[1], tables[3], "cpu")
+    torch.testing.assert_close(public, (ids, table), rtol=0, atol=0)
+

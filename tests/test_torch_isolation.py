@@ -4,7 +4,8 @@
    or anything of the JAX package ``repro`` (an AST scan).
 2. Importing the port's modules leaves ``jax`` and ``repro`` out of
    ``sys.modules`` (a fresh interpreter).
-3. An entry point left at its default device raises where there is no card.
+3. An entry point left at its default device raises where there is no card,
+   and an LM family that is not ported raises ``NotImplementedError``.
 4. A CUDA tensor that reaches ``ops`` without a built kernel library raises;
    it is never handed to the plain version.
 5. A run on the CPU launches no kernel: every counter stays at 0.
@@ -77,6 +78,52 @@ def test_default_device_entry_points_raise_without_a_card():
                  lambda: CodedExecutionEngine(ClusterConfig(n_workers=3, k=2), NoSlowdown()),
                  lambda: Worker(0, None, NoSlowdown())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_serving_modules_are_scanned():
+    """The serving slice's modules are among the files and modules that the
+    two scans above cover."""
+    names = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
+    assert {"repro_torch/configs/base.py", "repro_torch/configs/registry.py",
+            "repro_torch/configs/mistral_nemo_12b.py", "repro_torch/models/params.py",
+            "repro_torch/models/layers.py", "repro_torch/models/lm.py",
+            "repro_torch/runtime/serve_loop.py", "repro_torch/launch/serve.py"} <= names
+    archs = [p for p in (ROOT / "src" / "repro_torch" / "configs").glob("*.py")
+             if p.stem not in ("__init__", "base", "registry")]
+    assert len(archs) == 10
+
+
+def test_serving_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import LM, build_model
+    from repro_torch.runtime.serve_loop import CodedLMHead, Request, ServeConfig, serve
+    cfg = get_config("mistral-nemo-12b").reduced()
+    cpu_model = LM(cfg, device="cpu")
+    reqs = [Request(rid=0, prompt=np.arange(1, 4, dtype=np.int32), max_new=2)]
+    for make in (lambda: LM(cfg), lambda: build_model(cfg),
+                 lambda: CodedLMHead(torch.ones(8, 32), n=6, k=4, chunks=2),
+                 lambda: serve(cpu_model, reqs, ServeConfig()),
+                 lambda: main(["--reduced"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "xlstm-125m", "zamba2-1.2b",
+                                  "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b"])
+def test_families_not_ported_raise(arch):
+    """No other model runs in the place of one that is not ported: the
+    constructors, at full size and reduced, and the serving driver raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import LM, build_model
+    for make in (lambda: LM(get_config(arch), device="meta"),
+                 lambda: build_model(get_config(arch).reduced(), device="cpu"),
+                 lambda: main(["--arch", arch, "--reduced", "--device", "cpu"])):
+        with pytest.raises(NotImplementedError, match="not ported to PyTorch yet"):
             make()
 
 
