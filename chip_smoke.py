@@ -9,9 +9,12 @@ one CUDA device; the kernels are built into ``build/kernels/`` first):
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. print the card's name and power limit, build the four kernels, and
-   print the registers and spill stores ``-Xptxas -v`` gives for each;
+   print the registers and spill stores ``-Xptxas -v`` gives for each (the
+   multi design's and the split-row stream's instantiations one by one);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones, and time kernel, plain version and
+   main path's shapes and at ragged ones (``coded_matvec``'s stream, split
+   and general designs each reached directly at ragged shapes of their
+   own), and time kernel, plain version and
    one PyTorch library call two ways, with CUDA events:
    - ``device_ms``: many launches back to back, queued behind a sleep kernel
      so that the host runs ahead (checked, and timed again with fewer calls
@@ -24,7 +27,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 3. in turns on the card (new, old, old, new), at the main shape:
    ``coded_matvec``'s stream design against the warp-per-row design, each
    reached directly, and against ``torch.matmul`` on the same rows gathered
-   beforehand; the fused decode against the composition it replaced (index
+   beforehand (the general design keeps this place in turns since the
+   workloads it ran take the split-row stream); the fused decode against
+   the composition it replaced (index
    gather → ``mds_decode`` → transpose copy) and against the same three
    steps with ``torch.bmm``; the predictor's 32-step window through the
    sequence kernel against the per-step loop it replaced (32 ``lstm_cell``
@@ -98,12 +103,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        card, decoded from 3 live sets within 1e-3 of float64;
    (c) PageRank (40 power iterations on ``make_graph(32,768, 16)``) and a
        3-hop Laplacian filter on its first 16,384 nodes, each matvec coded
-       on the general design (rows over the stream's 32 KB) and planned
+       on the split-row stream (rows over the stream's 32 KB) and planned
        from the trained predictor, every coded product within 1e-3 and
-       the result within 1e-4 of float64 on the card; 43 general-design
-       and 43 ``mds_decode`` launches; then the general design at both
-       shapes in turns against ``torch.matmul`` on the same rows gathered
-       beforehand and the plain version;
+       the result within 1e-4 of float64 on the card; 43 split-design
+       and 43 ``mds_decode`` launches; then the split design at both
+       shapes in turns (new, old, old, new) against the general design
+       reached directly on the same operands, ``torch.matmul`` on the same
+       rows gathered beforehand and the plain version;
    (d) the Hessian AᵀDA of a 6,000 × 6,000 matrix on a (12, a = b = 3)
        polynomial code from 9 nodes, within 1e-3 of float64 on the card;
 7. serving mistral-nemo-12b at full width and depth (40 layers, d_model
@@ -145,8 +151,9 @@ cluster phase's, ``workload_launches`` phase 6's, ``serve_launches`` phase
 The record of ``coded_matvec``'s multi design that the cluster's
 ``matmul`` rounds launch is at a chunk's shape at B = 8, and its
 ``launches`` are the cluster phase's; the
-two records of the general design, which only phase 6 launches, are at
-PageRank's and the filter's shapes, with phase 6's launches; the record of
+two records of the split design, which only phase 6 launches, are at
+PageRank's and the filter's shapes, with phase 6's launches and the general
+design's time on the same operands (``old_ms``); the record of
 the multi design at the lm_head's shape has phase 7's.  Before them JSON
 lines hold phase 7's and phase 6's records.
 """
@@ -225,17 +232,23 @@ def ptxas_summary(log: str) -> str:
     lines: the multi design's instantiations one by one, the rest in sum."""
     kernels = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
                          r"Used (\d+) registers", log, re.S)
-    multi = []
+    multi, split = [], []
     for name, spill, regs in kernels:
         m = re.search(r"coded_matvec_multi_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
         if m:
             multi.append((m[1] != "f", int(m[2]), regs, spill))
+        m = re.search(r"coded_matvec_split_kernelI(f|13__nv_bfloat16)E", name)
+        if m:
+            split.append((m[1] != "f", regs, spill))
     spilled = [name for name, spill, _ in kernels if int(spill)]
     return (f"ptxas: {len(kernels)} kernels, at most "
             f"{max(int(regs) for _, _, regs in kernels)} registers a thread, {len(spilled)} "
             f"with spill stores {spilled}; coded_matvec's multi design: " + "; ".join(
                 f"{'bfloat16' if bf16 else 'float32'} NV = {nv}: {regs} registers, {spill} "
-                f"bytes spilled" for bf16, nv, regs, spill in sorted(multi)))
+                f"bytes spilled" for bf16, nv, regs, spill in sorted(multi))
+            + "; its split-row stream: " + "; ".join(
+                f"{'bfloat16' if bf16 else 'float32'}: {regs} registers, {spill} bytes spilled"
+                for bf16, regs, spill in sorted(split)))
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -367,7 +380,7 @@ def cluster_phase(dev, call_ms, timed, compare, in_turns, rows: int) -> tuple[di
             # the multi design, one launch per column group
             design = "stream" if widths[0] is None else "multi"
             want = {name: chunks * groups * (name == design)
-                    for name in ("stream", "multi", "general")}
+                    for name in ("stream", "split", "multi", "general")}
             if designs["coded_matvec"] != want:
                 raise RuntimeError(f"cluster {label}: coded_matvec launches by design "
                                    f"{designs['coded_matvec']}, not {want}")
@@ -855,7 +868,7 @@ def regression_step(dev, trained, compare) -> tuple:
                                                               "mds_encode")},
            {"coded_matvec": 2 * LR_ITERS, "mds_decode": 2 * LR_ITERS, "mds_encode": 1})
     expect("workloads (b): coded_matvec launches by design", designs["coded_matvec"],
-           {"stream": 2 * LR_ITERS, "multi": 0, "general": 0})
+           {"stream": 2 * LR_ITERS, "split": 0, "multi": 0, "general": 0})
     expect("workloads (b): the predictor's launches", designs["lstm_cell"],
            {"sequence": 2 * (LR_ITERS - 1), "cell": 0})
     rec.update(make_s=make_s, host_gb=rss, encode_ms=encode_s * 1e3, launches=counts,
@@ -914,10 +927,11 @@ def gradient_code_step(dev, keep, w, forecast) -> dict:
     return dict(sizes=sizes.tolist(), live_sets=live_sets, err=worst)
 
 
-def general_in_turns(label, coded, rpc, d, compare, in_turns, dev) -> dict:
-    """``coded_matvec``'s general design on a workload's coded state, k·C
-    blocks of rpc rows, in turns with ``torch.matmul`` on the same rows
-    gathered beforehand and with the plain version."""
+def split_in_turns(label, coded, rpc, d, compare, in_turns, dev) -> dict:
+    """``coded_matvec``'s split-row stream on a workload's coded state, k·C
+    blocks of rpc rows, in turns (new, old, old, new) with the general
+    design reached directly on the same operands, ``torch.matmul`` on the
+    same rows gathered beforehand and the plain version."""
     import torch
 
     from repro_torch.kernels import coded_matvec as cmv
@@ -928,42 +942,50 @@ def general_in_turns(label, coded, rpc, d, compare, in_turns, dev) -> dict:
     x = torch.randn(d, generator=gen, device=dev)
     nb = ids.numel()
     sel = a.view(N * CHUNKS, rpc, d)[ids.long()].reshape(-1, d)
-    if cmv.design_of(a, x) != "general":
-        raise RuntimeError(f"{label}: the shape does not take the general design")
-    err = compare(f"coded_matvec general, {label}", cmv.coded_matvec_general(a, x, ids, rpc),
-                  cmv.coded_matvec_plain(a, x, ids, rpc), F32_TOL)
-    versions = {"general": lambda: cmv.coded_matvec_general(a, x, ids, rpc),
-                "torch.matmul on pre-gathered rows": lambda: torch.matmul(sel, x),
+    if cmv.design_of(a, x) != "split":
+        raise RuntimeError(f"{label}: the shape does not take the split design")
+    want = cmv.coded_matvec_plain(a, x, ids, rpc)
+    err = compare(f"coded_matvec split, {label}", cmv.coded_matvec_split(a, x, ids, rpc), want,
+                  F32_TOL)
+    old_err = compare(f"coded_matvec general, {label}", cmv.coded_matvec_general(a, x, ids, rpc),
+                      want, F32_TOL)
+    del want
+    lib_name = "torch.matmul on pre-gathered rows"
+    versions = {"split": lambda: cmv.coded_matvec_split(a, x, ids, rpc),
+                "general": lambda: cmv.coded_matvec_general(a, x, ids, rpc),
+                lib_name: lambda: torch.matmul(sel, x),
                 "plain": lambda: cmv.coded_matvec_plain(a, x, ids, rpc)}
     names = list(versions)
-    times = in_turns(f"coded_matvec general, {label}", versions, names + names[::-1])
+    times = in_turns(f"coded_matvec split, {label}", versions, names + names[::-1])
     best = {name: min(t["device_ms"]) for name, t in times.items()}
     call = {name: statistics.median(t["call_ms"]) for name, t in times.items()}
     b_ms, b_by = bound_ms(4 * (nb * rpc * d + d + nb + nb * rpc), 2 * nb * rpc * d)
-    lib = best["torch.matmul on pre-gathered rows"]
-    print(f"coded_matvec general, {label}: bound {b_ms:.4f} ms ({b_by}); best device ms: "
+    lib = best[lib_name]
+    print(f"coded_matvec split, {label}: bound {b_ms:.4f} ms ({b_by}); best device ms: "
           + ", ".join(f"{name} {t:.4f}" for name, t in best.items())
-          + f"; general at {b_ms / best['general'] * 100:.1f} % of the bound, "
-          f"{best['general'] / lib:.3f}x torch.matmul; max abs err {err:.3e} (tol {F32_TOL})",
-          flush=True)
-    return dict(name=f"coded_matvec (general design, {label})", route="cuda",
+          + f"; split at {b_ms / best['split'] * 100:.1f} % of the bound, "
+          f"{best['split'] / lib:.3f}x torch.matmul, general at "
+          f"{b_ms / best['general'] * 100:.1f} %; max abs err {err:.3e}, general "
+          f"{old_err:.3e} (tol {F32_TOL})", flush=True)
+    return dict(name=f"coded_matvec (split design, {label})", route="cuda",
                 source="src/repro_torch/kernels/csrc/coded_matvec.cu",
                 replaces=KERNELS["coded_matvec"], launches=0, max_abs_err=err,
-                ms=best["general"], plain_ms=best["plain"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, device_ms=best["general"], call_ms=call["general"],
+                ms=best["split"], plain_ms=best["plain"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, device_ms=best["split"], call_ms=call["split"],
                 plain_device_ms=best["plain"], plain_call_ms=call["plain"],
-                library_device_ms=lib, library_call_ms=call["torch.matmul on pre-gathered rows"],
-                library=f"torch.matmul on pre-gathered rows, ({nb * rpc}, {d}) @ ({d},)",
-                design="general", shape=f"({N * CHUNKS * rpc}, {d}) float32, nb = {nb}, "
-                                        f"br = {rpc}")
+                library_device_ms=lib, library_call_ms=call[lib_name],
+                library=f"{lib_name}, ({nb * rpc}, {d}) @ ({d},)",
+                old_ms=best["general"], old_call_ms=call["general"], old="general design",
+                design="split", shape=f"({N * CHUNKS * rpc}, {d}) float32, nb = {nb}, "
+                                      f"br = {rpc}")
 
 
 def graph_step(dev, trained, compare, in_turns) -> tuple:
     """(c): ``pagerank`` and a 3-hop ``graph_filter``, each matvec coded and
     planned from the trained predictor, every iteration's coded product
     held to the float64 one and the result to the float64 iteration on the
-    card, the kernels to their plain versions on the data; the general
-    design timed at both shapes.  Returns the general design's two records
+    card, the kernels to their plain versions on the data; the split
+    design timed at both shapes.  Returns the split design's two records
     and the step's record."""
     import numpy as np
     import torch
@@ -987,7 +1009,7 @@ def graph_step(dev, trained, compare, in_turns) -> tuple:
     make_s = time.perf_counter() - t0
     traces = controlled_traces(N, PR_ITERS, n_stragglers=2, seed=7)
     cm = CodedMatvec(MDSCode(N, K), CHUNKS, device=dev)
-    rec, general, launches = {}, [], {}
+    rec, split, launches = {}, [], {}
     for name, mat_np, n_it in (("pagerank", m_np, PR_ITERS), ("filter", lap_np, FILTER_HOPS)):
         ops.reset_launch_counts()
         n = mat_np.shape[0]
@@ -1028,7 +1050,7 @@ def graph_step(dev, trained, compare, in_turns) -> tuple:
                {k_name: counts[k_name] for k_name in ("coded_matvec", "mds_decode", "mds_encode")},
                {"coded_matvec": n_it, "mds_decode": n_it, "mds_encode": 1})
         expect(f"workloads (c) {name}: coded_matvec launches by design",
-               designs["coded_matvec"], {"stream": 0, "multi": 0, "general": n_it})
+               designs["coded_matvec"], {"stream": 0, "split": n_it, "multi": 0, "general": 0})
         expect(f"workloads (c) {name}: the predictor's launches", designs["lstm_cell"],
                {"sequence": n_it - 1, "cell": 0})
         for k_name, v in counts.items():
@@ -1041,9 +1063,9 @@ def graph_step(dev, trained, compare, in_turns) -> tuple:
               f"{ref['worst']:.3e} of float64; launches {counts}, by design {designs}",
               flush=True)
         rec[name]["kernel_errs"] = hold_round(f"workloads (c) {name}", cm, m32, coded, x,
-                                              speeds.last, "general", compare)
-        general.append(general_in_turns(name, coded, rpc, n, compare, in_turns, dev))
-        general[-1]["launches"] = counts["coded_matvec"]
+                                              speeds.last, "split", compare)
+        split.append(split_in_turns(name, coded, rpc, n, compare, in_turns, dev))
+        split[-1]["launches"] = counts["coded_matvec"]
         del m64, m32, coded
         torch.cuda.empty_cache()
     expect("workloads (c): launches", {k_name: launches[k_name]
@@ -1054,7 +1076,7 @@ def graph_step(dev, trained, compare, in_turns) -> tuple:
     print(f"workloads (c): make_graph({PR_NODES}, {PR_DEGREE}), the transition matrix and the "
           f"Laplacian {make_s:.1f} s, host resident memory {rss[0]:.2f} GB before and "
           f"{rss[1]:.2f} GB at the peak; launches {rec['launches']}", flush=True)
-    return general, rec
+    return split, rec
 
 
 def hessian_step(dev, call_ms) -> dict:
@@ -1086,7 +1108,7 @@ def hessian_step(dev, call_ms) -> dict:
 
 
 def workloads_phase(dev, call_ms, compare, in_turns) -> tuple:
-    """Phase 6.  Returns the general design's records, the launches over the
+    """Phase 6.  Returns the split design's records, the launches over the
     phase's workloads by record name (``coded_matvec``: the stream design's),
     and the phase's record."""
     import torch
@@ -1100,18 +1122,18 @@ def workloads_phase(dev, call_ms, compare, in_turns) -> tuple:
     rec_e = gradient_code_step(dev, keep, w, forecast)
     del keep, w
     torch.cuda.empty_cache()
-    general, rec_c = graph_step(dev, trained, compare, in_turns)
+    split, rec_c = graph_step(dev, trained, compare, in_turns)
     rec_d = hessian_step(dev, call_ms)
     torch.cuda.empty_cache()
     launches = {name: rec_b["launches"].get(name, 0) + rec_c["launches"].get(name, 0)
                 for name in ops.launch_counts()}
     launches["lstm_cell"] += sum(rec_a["launches"].values())
-    # coded_matvec by design: (b) all stream, (c) all general
+    # coded_matvec by design: (b) all stream, (c) all split
     launches["coded_matvec (multi design)"] = 0
     launches["coded_matvec"] = rec_b["launches"]["coded_matvec"]
-    for rec in general:
+    for rec in split:
         launches[rec["name"]] = rec["launches"]
-    return general, launches, dict(train=rec_a, regression=rec_b, graph=rec_c, hessian=rec_d,
+    return split, launches, dict(train=rec_a, regression=rec_b, graph=rec_c, hessian=rec_d,
                                    gradient_code=rec_e)
 
 # -- 7. serving a dense LM at full width ------------------------------------
@@ -1205,7 +1227,7 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     expect("phase 7: serve.main's launches", counts,
            {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
     expect("phase 7: serve.main's coded_matvec designs", designs,
-           {"stream": 0, "multi": 1, "general": 0})
+           {"stream": 0, "split": 0, "multi": 1, "general": 0})
     main_err = float(re.search(r"rel_err=(\S+)", log.getvalue())[1])
     if not main_err <= REL_ERR_LIMIT:
         raise RuntimeError(f"phase 7: serve.main's coded head error {main_err} > {REL_ERR_LIMIT}")
@@ -1388,7 +1410,7 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     expect("phase 7: the coded head's launches (one encode, one logits call)", head_counts,
            {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
     expect("phase 7: the coded head's coded_matvec design", head_designs,
-           {"stream": 0, "multi": 1, "general": 0})
+           {"stream": 0, "split": 0, "multi": 1, "general": 0})
     want = x.double() @ head.double()
     head_err = rel_err(got, want)
     if not (got.shape == (2, cfg.vocab_size) and head_err <= REL_ERR_LIMIT):
@@ -1715,6 +1737,42 @@ def main() -> int:
         compare(f"coded_matvec stream {(blocks_r, nb_r, br, d, dt)}",
                 cmv.coded_matvec_stream(a_r, x_r, ids_r, br),
                 ref.coded_matvec_ref(a_r, x_r, ids_r, br), tol[dt])
+    # the split-row stream at ragged shapes: nb·br under the 132 SMs; rows
+    # just over 32 KB; a last slice narrower than the others (16,392
+    # bfloat16); a share of rows over a pass of 512 (nb·br = 2,000 × 60);
+    # an id outside A; and the general design reached directly at rows over
+    # 32 KB, a ragged d and an unaligned base
+    for blocks_r, nb_r, br, d, dt in [(9, 1, 3, 8200, torch.float32),
+                                      (9, 7, 1, 32768, torch.bfloat16),
+                                      (40, 30, 11, 16392, torch.bfloat16),
+                                      (2100, 2000, 60, 8200, torch.float32),
+                                      (240, 200, 82, 16384, torch.float32)]:
+        a_r, x_r = randn(blocks_r * br, d, dtype=dt), randn(d, dtype=dt)
+        ids_r = torch.randint(0, blocks_r, (nb_r,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        if nb_r > 1:
+            ids_r[nb_r // 2] = -1
+        got, want = cmv.coded_matvec_split(a_r, x_r, ids_r, br), ref.coded_matvec_ref(
+            a_r, x_r, ids_r, br)
+        keep = ids_r >= 0
+        if not torch.isnan(got[~keep].float()).all():
+            raise RuntimeError(f"coded_matvec split {(blocks_r, nb_r, br, d, dt)}: an id "
+                               "outside A did not give NaN rows")
+        compare(f"coded_matvec split {(blocks_r, nb_r, br, d, dt)}", got[keep], want[keep],
+                tol[dt])
+    del a_r
+    flat_r = randn(7 * 13 * 8200 + 1)
+    for blocks_r, nb_r, br, a_r, dt in [
+            (7, 5, 13, flat_r[1:].view(7 * 13, 8200), torch.float32),
+            (6, 9, 5, randn(30, 8201), torch.float32),
+            (9, 7, 3, randn(27, 16392, dtype=torch.bfloat16), torch.bfloat16)]:
+        x_r = randn(a_r.shape[1], dtype=dt)
+        ids_r = torch.randint(0, blocks_r, (nb_r,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        compare(f"coded_matvec general {(blocks_r, nb_r, br, a_r.shape[1], dt)}",
+                cmv.coded_matvec_general(a_r, x_r, ids_r, br),
+                ref.coded_matvec_ref(a_r, x_r, ids_r, br), tol[dt])
+    del a_r, flat_r
 
     # mds_encode: the whole matrix, once
     g = torch.as_tensor(MDSCode(N, K).generator, dtype=torch.float32, device=dev)
@@ -1949,7 +2007,8 @@ def main() -> int:
     short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
     if short:
         raise RuntimeError(f"the main path did not run through every kernel: {short}")
-    if designs["coded_matvec"] != {"stream": counts["coded_matvec"], "multi": 0, "general": 0}:
+    if designs["coded_matvec"] != {"stream": counts["coded_matvec"], "split": 0, "multi": 0,
+                                   "general": 0}:
         raise RuntimeError(f"coded_matvec launches on the main path left the stream "
                            f"design: {designs['coded_matvec']}")
     # one sequence launch per prediction with history (iteration 0 has none)
@@ -1973,26 +2032,26 @@ def main() -> int:
 
     # -- 6. the paper's workloads ---------------------------------------------
     t0 = time.perf_counter()
-    general_records, workload_counts, workloads = workloads_phase(dev, call_ms, compare,
-                                                                  in_turns)
+    split_records, workload_counts, workloads = workloads_phase(dev, call_ms, compare,
+                                                                in_turns)
     print(f"workloads phase: {time.perf_counter() - t0:.1f} s", flush=True)
     for rec in list(records.values()) + [multi_record]:
         rec["workload_launches"] = workload_counts[rec["name"]]
-    for rec in general_records:
+    for rec in split_records:
         rec["workload_launches"] = rec["launches"]
 
     # -- 7. serving a dense LM at full width ----------------------------------
     t0 = time.perf_counter()
     serve_counts, head_record, served = serve_phase(dev, call_ms, timed, compare, in_turns)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    for rec in list(records.values()) + [multi_record] + general_records + [head_record]:
+    for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["serve_launches"] = serve_counts.get(rec["name"], 0)
 
     print(json.dumps({"serve": served}))
     print(json.dumps({"workloads": workloads}))
     print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))
     print(json.dumps({"kernels": [records[name] for name in KERNELS] + [multi_record]
-                      + general_records + [head_record]}))
+                      + split_records + [head_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "s2c2_coded_matvec": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],
     "s2c2_coded_matvec_stream": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "s2c2_coded_matvec_multi": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _P],
+    "s2c2_coded_matvec_split": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "s2c2_mds_encode": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
     "s2c2_mds_decode": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P],
     "s2c2_lstm_cell": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P],

@@ -6,7 +6,7 @@ partition; only those blocks are read, so the cost scales with the work
 assigned.
 
 On Hopper the kernel (``csrc/coded_matvec.cu``) is bound by device-memory
-bytes: each element read feeds ``nvec`` ≤ 16 multiply-adds.  Three designs,
+bytes: each element read feeds ``nvec`` ≤ 16 multiply-adds.  Four designs,
 chosen by shape (:func:`design_of`), never by trying one:
 
 * the stream (:func:`coded_matvec_stream`), for ``nvec = 1`` with rows of a
@@ -15,13 +15,22 @@ chosen by shape (:func:`design_of`), never by trying one:
   keeps a ring of shared-memory tiles filled by bulk copies (TMA) while
   consumer warps reduce rows out of it, so the bytes in flight never wait
   for a reduction.  The main path takes it.
+* the split-row stream (:func:`coded_matvec_split`), for ``nvec = 1`` with
+  16-byte-aligned rows over ``MAX_STREAM_ROW_BYTES`` (PageRank's and the
+  graph filter's), whose whole rows and x no longer fit beside a ring: the
+  same persistent, TMA-fed ring, but each block owns an equal range of the
+  assigned rows and walks d in slices, a tile being one row's segment of
+  one slice; only that slice of x is in shared memory, and each row's slice
+  sums are added in slice order, so the result has the same bits on every
+  run.
 * the multi design (:func:`coded_matvec_multi`) for every x of 2 to 16
   columns, which the cluster's ``matmul`` chunks take: a persistent grid, x
   staged once per block in shared memory as float32 columns, each warp
   computing two rows at once so that a read of x feeds both.
 * the general path (:func:`coded_matvec_general`) for the ``nvec = 1``
-  shapes the stream refuses: one warp per row, 16-byte loads where d and
-  the alignment allow.
+  shapes the two streams refuse (a row not a multiple of 16 bytes, an
+  unaligned ``a``): one warp per row, 16-byte loads where d and the
+  alignment allow.
 
 All accumulate in float32, read each assigned row once, and give NaN rows
 for an id outside ``a``.  Each block id is read by the kernel itself (the
@@ -36,8 +45,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["coded_matvec_plain", "coded_matvec_cuda", "coded_matvec_stream",
-           "coded_matvec_multi", "coded_matvec_general", "design_of", "MAX_NVEC",
-           "MAX_STREAM_ROW_BYTES"]
+           "coded_matvec_split", "coded_matvec_multi", "coded_matvec_general", "design_of",
+           "MAX_NVEC", "MAX_STREAM_ROW_BYTES"]
 
 MAX_NVEC = 16
 MAX_STREAM_ROW_BYTES = 32 * 1024  # kMaxRowBytes in csrc/coded_matvec.cu
@@ -46,6 +55,7 @@ _ROWS_PER_LAUNCH_BLOCK = 64      # kRowsPerBlock in csrc/coded_matvec.cu
 # them, and those of each design; changed under _build.COUNT_LOCK
 launches = 0
 launches_stream = 0
+launches_split = 0
 launches_multi = 0
 launches_general = 0
 
@@ -98,13 +108,13 @@ def _checked(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
 
 def design_of(a: torch.Tensor, x: torch.Tensor) -> str:
     """The design :func:`coded_matvec_cuda` runs these operands on:
-    ``"stream"``, ``"multi"`` or ``"general"``, from their shapes, dtype and
-    ``a``'s alignment alone."""
+    ``"stream"``, ``"split"``, ``"multi"`` or ``"general"``, from their
+    shapes, dtype and ``a``'s alignment alone."""
     if x.ndim == 2 and x.shape[1] >= 2:
         return "multi"
     row_bytes = a.shape[1] * a.element_size()
-    if row_bytes % 16 == 0 and row_bytes <= MAX_STREAM_ROW_BYTES and a.data_ptr() % 16 == 0:
-        return "stream"
+    if row_bytes % 16 == 0 and a.data_ptr() % 16 == 0:
+        return "stream" if row_bytes <= MAX_STREAM_ROW_BYTES else "split"
     return "general"
 
 
@@ -119,11 +129,11 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
 
 def _design(design: str, a, x, block_ids, block_rows) -> torch.Tensor:
     """Launch ``design``; raise for a shape that :func:`design_of` gives to
-    another design (the general path also takes the stream's shapes)."""
+    another design (the general path also takes the two streams' shapes)."""
     _build.library()
     x2, squeeze = _checked(a, x, block_ids, block_rows)
     got = design_of(a, x2)
-    if got != design and (design, got) != ("general", "stream"):
+    if got != design and not (design == "general" and got in ("stream", "split")):
         raise ValueError(f"the {design} design does not take a {tuple(a.shape)} {a.dtype} at "
                          f"{a.data_ptr() % 16} past 16 with nvec={x2.shape[1]}: that is the "
                          f"{got} design's")
@@ -135,6 +145,13 @@ def coded_matvec_stream(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tenso
     """The persistent, TMA-fed design: nvec = 1 and 16-byte-aligned rows of
     at most ``MAX_STREAM_ROW_BYTES``; raises for any other shape."""
     return _design("stream", a, x, block_ids, block_rows)
+
+
+def coded_matvec_split(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
+                       block_rows: int) -> torch.Tensor:
+    """The split-row stream: nvec = 1 and 16-byte-aligned rows over
+    ``MAX_STREAM_ROW_BYTES``; raises for any other shape."""
+    return _design("split", a, x, block_ids, block_rows)
 
 
 def coded_matvec_multi(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tensor,
@@ -151,11 +168,13 @@ def coded_matvec_general(a: torch.Tensor, x: torch.Tensor, block_ids: torch.Tens
 
 
 def _count(design: str) -> None:
-    global launches, launches_stream, launches_multi, launches_general
+    global launches, launches_stream, launches_split, launches_multi, launches_general
     with _build.COUNT_LOCK:
         launches += 1
         if design == "stream":
             launches_stream += 1
+        elif design == "split":
+            launches_split += 1
         elif design == "multi":
             launches_multi += 1
         else:
@@ -172,6 +191,21 @@ def _stream(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
             _build.stream_of(a))
         _build.check(err, "coded_matvec (stream)")
         _count("stream")
+    return out if squeeze else out[:, :, None]
+
+
+def _split(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
+    nb = block_ids.shape[0]
+    out = torch.empty((nb, block_rows), dtype=a.dtype, device=a.device)
+    if nb:
+        # x's slices arrive by bulk copy, which needs 16-byte alignment
+        x_in = x2 if x2.data_ptr() % 16 == 0 else x2.clone()
+        err = _build.kernel("s2c2_coded_matvec_split")(
+            a.data_ptr(), x_in.data_ptr(), block_ids.data_ptr(), out.data_ptr(),
+            a.shape[0] // block_rows, nb, block_rows, a.shape[1], _build.DTYPE_CODES[a.dtype],
+            _build.stream_of(a))
+        _build.check(err, "coded_matvec (split)")
+        _count("split")
     return out if squeeze else out[:, :, None]
 
 
@@ -207,4 +241,4 @@ def _general(a, x2, block_ids, block_rows, squeeze) -> torch.Tensor:
     return out if squeeze else out[:, :, None]
 
 
-_LAUNCH = {"stream": _stream, "multi": _multi, "general": _general}
+_LAUNCH = {"stream": _stream, "split": _split, "multi": _multi, "general": _general}

@@ -8,7 +8,7 @@
 // used for nvec <= 16 multiply-adds: at most 8 flops a byte of float32, under
 // the card's 20 (67 TFLOP/s of float32 FMA over 3.35 TB/s), so the kernel can
 // at best stream the assigned rows at the HBM rate.  Offsets are 64-bit: the
-// coded tensor's element count exceeds 2^31.  Three designs, chosen by shape
+// coded tensor's element count exceeds 2^31.  Four designs, chosen by shape
 // (kernels/coded_matvec.py, design_of):
 //
 // * The stream (s2c2_coded_matvec_stream), for nvec = 1 with 16-byte rows of
@@ -29,6 +29,44 @@
 //   float32, R = 8 rows and S = 3 stages, 192 KB in flight per SM).  On the
 //   H100 a ring of much less than that waits on the latency of its copies,
 //   and of the tile sizes from 8 to 64 KB, 64 KB was the fastest.
+// * The split-row stream (s2c2_coded_matvec_split), for nvec = 1 with
+//   16-byte rows over kMaxRowBytes and a 16-byte-aligned A: PageRank's and
+//   the graph filter's rows of 128 and 64 KB, where one row and x as float32
+//   together fill the block's shared memory and leave no room for a ring.
+//   The general design streamed them at 82-94 % of the bound: a grid of
+//   64-row blocks whose ragged last tiles leave the busiest SM ~30 % more
+//   rows than the mean, bytes in flight that sag at each row's end, and x
+//   read again from L2 for every row.  Here the grid is persistent, one
+//   block per SM, and block b owns the flat rows (assigned block i, row r)
+//   from b·nb·br/grid to (b+1)·nb·br/grid, so the blocks' shares differ by
+//   one row at most; a share may cross from one assigned block into the
+//   next.  d is cut into as few slices of equal width as keep a row's share
+//   of one, its segment, within kSliceBytes; a tile is one segment, moved by
+//   one bulk copy that completes on the stage's "full" mbarrier, and one
+//   producer thread keeps the ring full under the stream's barrier
+//   protocol.  It walks the rows with a cursor that reads an id only where
+//   the assigned block changes, and leaves the consumers a flag, whether
+//   the row lies inside A: with a lookup per row (a dependent load and a
+//   64-bit division) the producer could not issue copies of 4-8 KB fast
+//   enough, and the design ran at 31-68 % of its bound.  The block walks
+//   slices outer and its rows inner, so only the slice of x in use sits in
+//   shared memory (in T, widened as it is read, like A), read from device
+//   memory once per block per slice and double-buffered on barriers of its
+//   own, so that the next slice of x is copied while the last is read.  A
+//   row's sums over the slices stay in shared memory and are added in slice
+//   order by the one lane that owns the row in every slice; the row is
+//   written once, after its last slice: fixed order, no atomics, the same
+//   bits on every run.  A share of more than kPassRows rows is walked in
+//   passes.  kSliceBytes = 32 KB gives five stages, 160 KB in flight; on
+//   the H100 (scripts/split_sweep.py, which builds other widths with -D)
+//   16 KB slices ran 1.0-1.4 % slower at PageRank's and the filter's
+//   shapes and 8 KB slices 19-20 % slower.  Tiles of 2-16 rows' segments
+//   tied with one within noise at 16-32 KB segments and were dropped.  It
+//   runs there at 91-96 % of the bound, at or above the stream's rate over
+//   the same bytes in whole rows of 32 KB, where the general design ran at
+//   81-93 %.  At the stream's own shapes it trails the stream (18.5 % at
+//   8 KB rows, whose 8 stages hold 64 KB; 1.75 % at 20 KB rows), so the
+//   stream keeps rows of at most kMaxRowBytes.
 // * The multi design (s2c2_coded_matvec_multi), for 2 <= nvec <= 16: the
 //   cluster's chunks of a B-column product.  Each element of A feeds nvec
 //   multiply-adds, so x must cost no more than A's bytes.  It is read from
@@ -62,16 +100,17 @@
 //   and the block stages them in turn, between barriers, for every round of
 //   its items.
 // * The general path (s2c2_coded_matvec) for the nvec = 1 shapes that the
-//   stream refuses: one warp per row, each lane issuing 16-byte read-only
-//   loads along the row (a 512-byte coalesced request per warp instruction),
-//   accumulating in float32, and the warp reducing with shuffles.  Each block
+//   two streams refuse (rows not a multiple of 16 bytes, an unaligned A):
+//   one warp per row, each lane issuing 16-byte read-only loads along the
+//   row (a 512-byte coalesced request per warp instruction), accumulating in
+//   float32, and the warp reducing with shuffles.  Each block
 //   covers kRowsPerBlock rows of one assigned row-block and reads that
 //   block's id itself (the TPU kernel's scalar prefetch).  The contraction
 //   dim is walked by a loop inside the warp, which stands in for the TPU's
 //   sequential d-tile grid axis and its VMEM accumulator.
 //
 // In the multi and general designs a ragged d, or an A that is not 16-byte
-// aligned, takes scalar loads.  In all three an id outside A yields NaN rows
+// aligned, takes scalar loads.  In all four an id outside A yields NaN rows
 // and no read.
 #include "common.cuh"
 
@@ -386,6 +425,237 @@ cudaError_t launch(const void* a, const void* x, const int32_t* ids, void* out,
 }
 
 }  // namespace stream
+
+
+// -- the split-row stream: persistent, TMA-fed, rows over 32 KB ---------------
+
+namespace split {
+
+constexpr int kConsumerWarps = 8;
+constexpr int kMaxStages = 8;
+constexpr int kPassRows = 512;              // the partial sums one pass keeps in shared memory
+#ifndef S2C2_SPLIT_SLICE_BYTES
+#define S2C2_SPLIT_SLICE_BYTES (32 * 1024)
+#endif
+// the widest segment, one row's share of a slice; a tile is one segment
+constexpr int64_t kSliceBytes = S2C2_SPLIT_SLICE_BYTES;
+static_assert(kSliceBytes >= 16 && kSliceBytes % 16 == 0, "a segment is whole 16-byte packets");
+static_assert(4 * kSliceBytes + kPassRows * 4 + (2 * kMaxStages + 4) * 8 + kMaxStages * 4 <=
+                  kSmemBytes,
+              "the ring holds two segments beside two slices of x");
+
+// This lane's share of one segment of a row times the same slice of x, both
+// in shared memory in T: n16 packets of 16 bytes.
+template <typename T> struct SegDot;
+
+template <> struct SegDot<float> {
+  __device__ __forceinline__ static float lane_sum(const unsigned char* seg,
+                                                   const unsigned char* xs, int n16, int lane) {
+    return stream::RowDot<float>::lane_sum(seg, reinterpret_cast<const float*>(xs), 4 * n16,
+                                           lane);
+  }
+};
+
+template <> struct SegDot<__nv_bfloat16> {
+  __device__ __forceinline__ static float lane_sum(const unsigned char* seg,
+                                                   const unsigned char* xs, int n16, int lane) {
+    const uint4* a = reinterpret_cast<const uint4*>(seg);
+    const uint4* x = reinterpret_cast<const uint4*>(xs);
+    float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll 4
+    for (int p = lane; p < n16; p += 32) {
+      const uint4 u = a[p], v = x[p];
+      const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const __nv_bfloat162* hx = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(ha[j]), fx = __bfloat1622float2(hx[j]);
+        acc0 = fmaf(fa.x, fx.x, acc0);
+        acc1 = fmaf(fa.y, fx.y, acc1);
+      }
+    }
+    return acc0 + acc1;
+  }
+};
+
+// Flat row f is row r = f % br of assigned block i = f / br; the cursor
+// walks the flat rows in order and reads an id only where i changes (a
+// lookup per row, a dependent load and a 64-bit division, held the producer
+// below the rate of copies of 4-8 KB).
+struct RowCursor {
+  int64_t i, r, id;                              // id: -1 outside A (or past nb)
+
+  __device__ __forceinline__ void load(const int32_t* __restrict__ ids, int64_t nb,
+                                       int64_t n_blocks) {
+    const int64_t v = i < nb ? ids[i] : -1;
+    id = v >= 0 && v < n_blocks ? v : -1;
+  }
+  __device__ __forceinline__ void seek(const int32_t* __restrict__ ids, int64_t f, int64_t nb,
+                                       int64_t br, int64_t n_blocks) {
+    i = f / br;
+    r = f - i * br;
+    load(ids, nb, n_blocks);
+  }
+  __device__ __forceinline__ void next(const int32_t* __restrict__ ids, int64_t nb, int64_t br,
+                                       int64_t n_blocks) {
+    if (++r == br) {
+      r = 0;
+      ++i;
+      load(ids, nb, n_blocks);
+    }
+  }
+};
+
+// Block b owns flat rows [b·nb·br / grid, (b + 1)·nb·br / grid).  It walks
+// them in passes of at most kPassRows rows; each pass walks the slices of d
+// in order, and each slice the pass's rows, one segment a tile.  Tile t
+// (counted over the whole walk) lives in stage t % S with phase t / S, as in
+// the stream; beside it the producer leaves a flag, whether the row's id is
+// inside A, published by its arrival on the stage's "full" barrier, so the
+// consumers read no id.  Slice u of the walk (counted over the passes) is
+// copied into x buffer u % 2, with its own full and empty barriers at phase
+// u / 2: the producer copies slice u + 1 of x while the consumers still read
+// slice u, and waits only for slice u - 1's readers.  A row goes to consumer
+// warp (row - pass start) mod W in every slice, so the same lane adds its
+// slices' sums in slice order, and the row is written once, after its last.
+template <typename T>
+__global__ void __launch_bounds__((kConsumerWarps + 1) * 32, 1)
+coded_matvec_split_kernel(const T* __restrict__ a, const T* __restrict__ x,
+                          const int32_t* __restrict__ ids, T* __restrict__ out,
+                          int64_t n_blocks, int64_t nb, int64_t br, int64_t d, int64_t slice,
+                          int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int64_t seg_bytes = slice * static_cast<int64_t>(sizeof(T));
+  unsigned char* ring = smem;
+  unsigned char* xbuf = smem + stages * seg_bytes;
+  float* part = reinterpret_cast<float*>(xbuf + 2 * seg_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + kPassRows);
+  uint64_t* empty = full + stages;
+  uint64_t* xfull = empty + stages;
+  uint64_t* xempty = xfull + 2;
+  int* inside = reinterpret_cast<int*>(xempty + 2);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      stream::mbar_init(&full[s], 1);
+      stream::mbar_init(&empty[s], kConsumerWarps);
+    }
+    for (int b = 0; b < 2; ++b) {
+      stream::mbar_init(&xfull[b], 1);
+      stream::mbar_init(&xempty[b], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int64_t total = nb * br;
+  const int64_t r0 = blockIdx.x * total / gridDim.x;
+  const int64_t r1 = (blockIdx.x + 1) * total / gridDim.x;
+  const int64_t slices = (d + slice - 1) / slice;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int64_t t = 0, u = 0;
+
+  if (warp == kConsumerWarps) {                  // the producer warp
+    if (lane != 0) return;
+    for (int64_t p0 = r0; p0 < r1; p0 += kPassRows) {
+      const int64_t p1 = r1 - p0 < kPassRows ? r1 : p0 + kPassRows;
+      for (int64_t s = 0; s < slices; ++s, ++u) {
+        const int64_t k0 = s * slice;
+        const uint32_t bytes = static_cast<uint32_t>((d - k0 < slice ? d - k0 : slice) *
+                                                     static_cast<int64_t>(sizeof(T)));
+        const int xb = static_cast<int>(u & 1);
+        if (u >= 2) stream::mbar_wait(&xempty[xb], static_cast<uint32_t>((u / 2 - 1) & 1));
+        stream::mbar_arrive_expect_tx(&xfull[xb], bytes);
+        stream::bulk_load(xbuf + xb * seg_bytes, x + k0, bytes, &xfull[xb]);
+        RowCursor cur;
+        cur.seek(ids, p0, nb, br, n_blocks);
+        for (int64_t f = p0; f < p1; ++f, ++t, cur.next(ids, nb, br, n_blocks)) {
+          const int stage = static_cast<int>(t % stages);
+          if (t >= stages)
+            stream::mbar_wait(&empty[stage], static_cast<uint32_t>((t / stages - 1) & 1));
+          inside[stage] = cur.id >= 0;
+          if (cur.id < 0) {
+            stream::mbar_arrive(&full[stage]);   // nothing to copy: the row becomes NaN
+            continue;
+          }
+          stream::mbar_arrive_expect_tx(&full[stage], bytes);
+          stream::bulk_load(ring + stage * seg_bytes, a + (cur.id * br + cur.r) * d + k0, bytes,
+                            &full[stage]);
+        }
+      }
+    }
+    return;
+  }
+
+  for (int64_t p0 = r0; p0 < r1; p0 += kPassRows) {                     // consumers
+    const int64_t p1 = r1 - p0 < kPassRows ? r1 : p0 + kPassRows;
+    for (int64_t s = 0; s < slices; ++s, ++u) {
+      const int64_t k0 = s * slice;
+      const int n16 = static_cast<int>((d - k0 < slice ? d - k0 : slice) *
+                                       static_cast<int64_t>(sizeof(T)) / 16);
+      const int xb = static_cast<int>(u & 1);
+      const unsigned char* xs = xbuf + xb * seg_bytes;
+      stream::mbar_wait(&xfull[xb], static_cast<uint32_t>((u / 2) & 1));
+      for (int64_t f = p0; f < p1; ++f, ++t) {
+        const int stage = static_cast<int>(t % stages);
+        stream::mbar_wait(&full[stage], static_cast<uint32_t>((t / stages) & 1));
+        const int j = static_cast<int>(f - p0);
+        if (j % kConsumerWarps == warp) {
+          float sum = CUDART_NAN_F;
+          if (inside[stage])
+            sum = s2c2::warp_sum(SegDot<T>::lane_sum(ring + stage * seg_bytes, xs, n16, lane));
+          if (lane == 0) {
+            if (s > 0) sum = part[j] + sum;      // the slices' sums, in slice order
+            if (s + 1 < slices)
+              part[j] = sum;
+            else
+              out[f] = s2c2::from_float<T>(sum);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) stream::mbar_arrive(&empty[stage]);
+      }
+      __syncwarp();
+      if (lane == 0) stream::mbar_arrive(&xempty[xb]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* a, const void* x, const int32_t* ids, void* out,
+                   int64_t n_blocks, int64_t nb, int64_t br, int64_t d, cudaStream_t stream) {
+  const int64_t row_bytes = d * static_cast<int64_t>(sizeof(T));
+  if (d < 1 || br < 1 || nb < 1 || row_bytes % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return cudaErrorInvalidValue;
+  // d is cut into as few slices of equal width (a whole number of 16-byte
+  // packets) as keep each within kSliceBytes, so that no narrow last slice
+  // costs a walk of its own; the ring holds as many segments as fit beside
+  // two slices of x, the pass's partial sums, the flags and the barriers, at
+  // most kMaxStages (at least 2: the static_assert above).
+  const int64_t packet = 16 / static_cast<int64_t>(sizeof(T));
+  const int64_t n_slices = (row_bytes + kSliceBytes - 1) / kSliceBytes;
+  const int64_t slice = ((d + n_slices - 1) / n_slices + packet - 1) / packet * packet;
+  const int64_t seg_bytes = slice * static_cast<int64_t>(sizeof(T));
+  const int64_t fixed = 2 * seg_bytes + kPassRows * 4 + (2 * kMaxStages + 4) * 8 + kMaxStages * 4;
+  int64_t stages = (kSmemBytes - fixed) / seg_bytes;
+  if (stages > kMaxStages) stages = kMaxStages;
+  const size_t smem = static_cast<size_t>(stages * seg_bytes + 2 * seg_bytes + kPassRows * 4 +
+                                          (2 * stages + 4) * 8 + stages * 4);
+  static std::atomic<int> sms_of[kMaxDevices];
+  int sms = 0;
+  const cudaError_t err = persistent_setup(coded_matvec_split_kernel<T>, sms_of, &sms);
+  if (err != cudaSuccess) return err;
+  const int64_t total = nb * br;
+  const unsigned grid = static_cast<unsigned>(total < sms ? total : sms);
+  coded_matvec_split_kernel<T><<<grid, (kConsumerWarps + 1) * 32, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(x), ids, static_cast<T*>(out), n_blocks,
+      nb, br, d, slice, static_cast<int>(stages));
+  return cudaGetLastError();
+}
+
+}  // namespace split
 
 
 // -- the multi design: 2 <= nvec <= 16, x in shared memory ---------------------
@@ -723,5 +993,20 @@ S2C2_API int s2c2_coded_matvec_stream(const void* a, const void* x, const void* 
     return stream::launch<float>(a, x, ids_, out, n_blocks, nb, br, d, s);
   if (dtype == s2c2::kBFloat16)
     return stream::launch<__nv_bfloat16>(a, x, ids_, out, n_blocks, nb, br, d, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split-row stream: nvec = 1, rows of a multiple of 16 bytes, a
+// 16-byte-aligned A and x (the caller checks; anything else is refused).
+// a: (n_blocks·br, d); x: (d,); ids: (nb,) int32; out: (nb, br); nb >= 1.
+S2C2_API int s2c2_coded_matvec_split(const void* a, const void* x, const void* ids, void* out,
+                                     int64_t n_blocks, int64_t nb, int64_t br, int64_t d,
+                                     int dtype, void* stream) {
+  const auto* ids_ = static_cast<const int32_t*>(ids);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == s2c2::kFloat32)
+    return split::launch<float>(a, x, ids_, out, n_blocks, nb, br, d, s);
+  if (dtype == s2c2::kBFloat16)
+    return split::launch<__nv_bfloat16>(a, x, ids_, out, n_blocks, nb, br, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

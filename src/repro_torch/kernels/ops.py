@@ -152,6 +152,7 @@ def design_counts() -> dict[str, dict[str, int]]:
     the last reset."""
     with _build.COUNT_LOCK:
         return {"coded_matvec": {"stream": _cmv.launches_stream,
+                                 "split": _cmv.launches_split,
                                  "multi": _cmv.launches_multi,
                                  "general": _cmv.launches_general},
                 "lstm_cell": {"sequence": _lstm.launches_sequence,
@@ -162,5 +163,6 @@ def reset_launch_counts() -> None:
     with _build.COUNT_LOCK:
         for mod in _MODULES.values():
             mod.launches = 0
-        _cmv.launches_stream = _cmv.launches_multi = _cmv.launches_general = 0
+        _cmv.launches_stream = _cmv.launches_split = 0
+        _cmv.launches_multi = _cmv.launches_general = 0
         _lstm.launches_sequence = _lstm.launches_cell = 0

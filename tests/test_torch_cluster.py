@@ -459,6 +459,7 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
     a, ids = torch.zeros(64, 32), torch.zeros(1, dtype=torch.int32)
     x1, x3 = torch.zeros(32), torch.zeros(32, 3)
     a_ragged, x_ragged = torch.zeros(64, 30), torch.zeros(30)     # 120-byte rows
+    a_wide, x_wide = torch.zeros(64, 8200), torch.zeros(8200)     # 32,800-byte rows
     w, parts = torch.zeros(2, 3, 3), torch.zeros(6, 8)
     table = torch.arange(6, dtype=torch.int32).view(2, 3)
     threads_n, calls = 16, 300
@@ -469,6 +470,7 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
             cmv.coded_matvec_cuda(a, x1, ids, 8)        # the stream design
             cmv.coded_matvec_cuda(a, x3, ids, 8)        # the multi design
             cmv.coded_matvec_cuda(a_ragged, x_ragged, ids, 8)   # the general design
+            cmv.coded_matvec_cuda(a_wide, x_wide, ids, 8)       # the split-row stream
             ops._dec.mds_decode_into_cuda(w, parts, table, out)
 
     ops.reset_launch_counts()
@@ -485,10 +487,10 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
         sys.setswitchinterval(old)
     total = threads_n * calls
     try:
-        assert ops.launch_counts() == {"coded_matvec": 3 * total, "mds_encode": 0,
+        assert ops.launch_counts() == {"coded_matvec": 4 * total, "mds_encode": 0,
                                        "mds_decode": total, "lstm_cell": 0}
-        assert ops.design_counts()["coded_matvec"] == {"stream": total, "multi": total,
-                                                       "general": total}
+        assert ops.design_counts()["coded_matvec"] == {"stream": total, "split": total,
+                                                       "multi": total, "general": total}
     finally:
         ops.reset_launch_counts()
 
@@ -524,9 +526,9 @@ def test_cuda_backend_matches_its_cpu_run(cuda, width):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
         assert ops.launch_counts()["coded_matvec"] == groups
         if width is None:
-            assert designs == {"stream": 1, "multi": 0, "general": 0}
+            assert designs == {"stream": 1, "split": 0, "multi": 0, "general": 0}
         else:
-            assert designs == {"stream": 0, "multi": groups, "general": 0}
+            assert designs == {"stream": 0, "split": 0, "multi": groups, "general": 0}
 
 
 @pytest.mark.cuda
@@ -537,7 +539,8 @@ def test_cuda_backend_unaligned_view_takes_the_general_design(cuda):
     x = _rng(23).standard_normal(13)
     ops.reset_launch_counts()
     got = kernel_backend(cuda).compute_chunk(0, "s", shard, 3, 13, x)
-    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "multi": 0, "general": 1}
+    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "split": 0, "multi": 0,
+                                                   "general": 1}
     np.testing.assert_allclose(got, kernel_backend(CPU).compute_chunk(0, "s", shard, 3, 13, x),
                                rtol=1e-5, atol=1e-5)
 

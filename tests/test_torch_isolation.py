@@ -188,7 +188,8 @@ def test_cuda_tensor_without_library_raises(monkeypatch):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 call()
     assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
-    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "multi": 0, "general": 0},
+    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "split": 0, "multi": 0,
+                                                    "general": 0},
                                    "lstm_cell": {"sequence": 0, "cell": 0}}
 
 
@@ -211,5 +212,6 @@ def test_cpu_run_launches_no_kernel():
         sp.observe(traces[it])
     assert ops.launch_counts() == {"coded_matvec": 0, "mds_encode": 0, "mds_decode": 0,
                                    "lstm_cell": 0}
-    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "multi": 0, "general": 0},
+    assert ops.design_counts() == {"coded_matvec": {"stream": 0, "split": 0, "multi": 0,
+                                                    "general": 0},
                                    "lstm_cell": {"sequence": 0, "cell": 0}}

@@ -28,7 +28,9 @@ TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=5e-2, atol=5
 LSTM_TOL = dict(rtol=1e-5, atol=1e-5)
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-MATVEC_SHAPES = [(8, 8, 128, 1), (12, 16, 300, 3), (6, 32, 512, 8), (5, 8, 130, 2)]
+# the last: rows over 32 KB in float32, the split-row stream's shapes
+MATVEC_SHAPES = [(8, 8, 128, 1), (12, 16, 300, 3), (6, 32, 512, 8), (5, 8, 130, 2),
+                 (4, 3, 8200, 1)]
 ENCODE_SHAPES = [(5, 3, 64, 128), (12, 10, 100, 260), (4, 4, 16, 640)]
 DECODE_SHAPES = [(4, 3, 5, 128), (6, 7, 10, 200), (1, 2, 2, 512)]
 # the table-addressed decode: (chunks, k, m, r, partial rows P)
@@ -100,8 +102,13 @@ class TestCodedMatvec:
         (4096, torch.bfloat16, None, 0, "stream"), (8192, torch.float32, None, 0, "stream"),
         (16384, torch.bfloat16, None, 0, "stream"), (4, torch.float32, None, 0, "stream"),
         (130, torch.float32, None, 0, "general"), (2048, torch.float32, 3, 0, "multi"),
-        (2048, torch.float32, None, 1, "general"), (8200, torch.float32, None, 0, "general"),
-        (16392, torch.bfloat16, None, 0, "general"),
+        (2048, torch.float32, None, 1, "general"), (8200, torch.float32, None, 0, "split"),
+        (16392, torch.bfloat16, None, 0, "split"),
+        # rows over 32 KB at nvec = 1 take the split-row stream where rows
+        # and base are 16-byte aligned, the general path where the base is not
+        (16384, torch.float32, None, 0, "split"), (32768, torch.float32, None, 0, "split"),
+        (32768, torch.float32, 1, 0, "split"), (32768, torch.bfloat16, None, 0, "split"),
+        (8200, torch.float32, None, 1, "general"),
         # every x of 2 to 16 columns takes the multi design, whatever d,
         # the base's alignment or the row's length
         (2048, torch.float32, 2, 0, "multi"), (2048, torch.float32, 5, 0, "multi"),
@@ -110,8 +117,8 @@ class TestCodedMatvec:
         (8200, torch.float32, 16, 0, "multi"), (16392, torch.bfloat16, 2, 0, "multi")])
     def test_stream_dispatch_rule(self, d, dtype, nvec, offset, design):
         """The stream design takes nvec = 1 with 16-byte-aligned rows of at
-        most 32 KB; the multi design every nvec of 2 or more; the general
-        path the rest."""
+        most 32 KB, the split-row stream those over 32 KB; the multi design
+        every nvec of 2 or more; the general path the rest."""
         from repro_torch.kernels import coded_matvec as cmv
         flat = torch.empty(8 * d + 16, dtype=dtype)
         shift = (-flat.data_ptr() % 16) // flat.element_size() + offset
@@ -126,6 +133,26 @@ class TestCodedMatvec:
         for nb in (0, 1, 3, 8):
             out = ops.coded_matvec(a, x, torch.arange(nb, dtype=torch.int32), 8)
             assert out.shape == (nb, 8, 1)
+
+
+    @pytest.mark.parametrize("d,dtype,nvec,offset,design", [
+        (2048, torch.float32, None, 0, "stream"), (8192, torch.float32, None, 0, "stream"),
+        (16384, torch.bfloat16, None, 0, "stream"), (8200, torch.float32, 2, 0, "multi"),
+        (32768, torch.float32, 4, 0, "multi"), (8201, torch.float32, None, 0, "general"),
+        (8200, torch.float32, None, 1, "general")])
+    def test_split_refuses_other_shapes(self, monkeypatch, d, dtype, nvec, offset, design):
+        """``coded_matvec_split`` raises, naming the design that takes the
+        shape, for a stream, multi or ragged shape; nothing is launched."""
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import coded_matvec as cmv
+        monkeypatch.setattr(_build, "library", lambda: None)
+        monkeypatch.setattr(_build, "kernel", lambda name: pytest.fail(f"launched {name}"))
+        flat = torch.zeros(2 * d + 16, dtype=dtype)
+        shift = (-flat.data_ptr() % 16) // flat.element_size() + offset
+        a = flat[shift:shift + 2 * d].view(2, d)
+        x = torch.zeros(d, dtype=dtype) if nvec is None else torch.zeros(d, nvec, dtype=dtype)
+        with pytest.raises(ValueError, match=f"the split design does not take.*{design}"):
+            cmv.coded_matvec_split(a, x, torch.zeros(1, dtype=torch.int32), 1)
 
 
 class TestMDSEncode:
@@ -362,7 +389,8 @@ def test_cuda_coded_matvec_multi(cuda, dtype, nvec, n_blocks, nb, br, d):
     ids = torch.randperm(n_blocks, generator=gen, device=cuda)[:nb].to(torch.int32)
     ops.reset_launch_counts()
     got = ops.coded_matvec(a, x, ids, br)
-    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "multi": 1, "general": 0}
+    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "split": 0, "multi": 1,
+                                                   "general": 0}
     again = cmv.coded_matvec_multi(a, x, ids, br)
     want = ref.coded_matvec_ref(a, x, ids, br)
     torch.cuda.synchronize()
@@ -491,8 +519,8 @@ def test_cuda_coded_matvec_stream(cuda, dtype, n_blocks, nb, br, d):
     ids = torch.randint(0, n_blocks, (nb,), generator=gen, device=cuda, dtype=torch.int32)
     ops.reset_launch_counts()
     got = cmv.coded_matvec_stream(a, x, ids, br)
-    assert ops.design_counts()["coded_matvec"] == {"stream": int(nb > 0), "multi": 0,
-                                                   "general": 0}
+    assert ops.design_counts()["coded_matvec"] == {"stream": int(nb > 0), "split": 0,
+                                                   "multi": 0, "general": 0}
     want = ref.coded_matvec_ref(a, x, ids, br)
     torch.cuda.synchronize()
     assert got.shape == (nb, br) and got.dtype == a.dtype
@@ -529,13 +557,14 @@ def test_cuda_coded_matvec_stream_bad_id_gives_nan(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_coded_matvec_design_follows_shape(cuda):
-    """Aligned nvec = 1 shapes take the stream; several vectors the multi
-    design; a ragged row, a misaligned base or a row over 32 KB at nvec = 1
-    the general path."""
+    """Aligned nvec = 1 shapes take the stream, or the split-row stream for
+    rows over 32 KB; several vectors the multi design; a ragged row or a
+    misaligned base at nvec = 1 the general path."""
     from repro_torch.kernels import coded_matvec as cmv
     gen = torch.Generator(device=cuda).manual_seed(5)
     ids = torch.tensor([0, 2], dtype=torch.int32, device=cuda)
     flat = _cuda_rand(gen, (4 * 8 * 2048 + 1,))
+    wide = _cuda_rand(gen, (32 * 8200 + 1,))
     cases = {
         "stream": [(_cuda_rand(gen, (32, 2048)), _cuda_rand(gen, (2048,))),
                    (_cuda_rand(gen, (32, 4096), torch.bfloat16),
@@ -544,9 +573,12 @@ def test_cuda_coded_matvec_design_follows_shape(cuda):
         "multi": [(_cuda_rand(gen, (32, 2048)), _cuda_rand(gen, (2048, 3))),
                   (flat[1:].view(32, 2048), _cuda_rand(gen, (2048, 16))),
                   (_cuda_rand(gen, (32, 8200)), _cuda_rand(gen, (8200, 2)))],
+        "split": [(_cuda_rand(gen, (32, 8200)), _cuda_rand(gen, (8200,))),
+                  (_cuda_rand(gen, (32, 16392), torch.bfloat16),
+                   _cuda_rand(gen, (16392, 1), torch.bfloat16))],
         "general": [(_cuda_rand(gen, (32, 130)), _cuda_rand(gen, (130,))),
                     (flat[1:].view(32, 2048), _cuda_rand(gen, (2048,))),
-                    (_cuda_rand(gen, (32, 8200)), _cuda_rand(gen, (8200,)))],
+                    (wide[1:].view(32, 8200), _cuda_rand(gen, (8200,)))],
     }
     for design, operands in cases.items():
         for a, x in operands:
@@ -554,18 +586,103 @@ def test_cuda_coded_matvec_design_follows_shape(cuda):
             got = ops.coded_matvec(a, x, ids, 8)
             assert cmv.design_of(a, x) == design
             assert ops.design_counts()["coded_matvec"] == {
-                name: int(name == design) for name in ("stream", "multi", "general")}
+                name: int(name == design) for name in ("stream", "split", "multi", "general")}
             np.testing.assert_allclose(_np(got.cpu()),
                                        _np(ref.coded_matvec_ref(a, x, ids, 8).cpu()),
                                        **TOL["float32" if a.dtype == torch.float32
                                              else "bfloat16"])
     with pytest.raises(ValueError, match="the stream design does not take"):
         cmv.coded_matvec_stream(a, x, ids, 8)
+    with pytest.raises(ValueError, match="the split design does not take"):
+        cmv.coded_matvec_split(a, x, ids, 8)
     with pytest.raises(ValueError, match="the multi design does not take"):
         cmv.coded_matvec_multi(a, x, ids, 8)
     with pytest.raises(ValueError, match="the general design does not take"):
         cmv.coded_matvec_general(*cases["multi"][0], ids, 8)
     ops.reset_launch_counts()
+
+
+# the split-row stream: (d, dtype) with rows over 32 KB, cut into two slices
+# (8,200 float32; 16,392 bfloat16, whose last slice is 8 columns narrower),
+# and PageRank's and the filter's rows; (blocks in a, assigned nb): nb·br
+# below the 132 SMs (br = 1, 3 and nb = 1, 7) and the workloads' 200 of 240
+SPLIT_WIDTHS = [(8200, "float32"), (16384, "float32"), (32768, "float32"),
+                (16392, "bfloat16"), (32768, "bfloat16")]
+SPLIT_BLOCKS = [(9, 1), (9, 7), (240, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", SPLIT_WIDTHS)
+@pytest.mark.parametrize("br", [1, 3, 82, 164])
+@pytest.mark.parametrize("n_blocks,nb", SPLIT_BLOCKS)
+def test_cuda_coded_matvec_split(cuda, d, dtype, br, n_blocks, nb):
+    """The split-row stream against the plain version; one launch counted on
+    the split design; a second run gives the same bits (slice sums in a
+    fixed order, no atomics)."""
+    from repro_torch.kernels import coded_matvec as cmv
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = _cuda_rand(gen, (n_blocks * br, d), TORCH_DTYPE[dtype])
+    x = _cuda_rand(gen, (d,), TORCH_DTYPE[dtype])
+    ids = torch.randperm(n_blocks, generator=gen, device=cuda)[:nb].to(torch.int32)
+    ops.reset_launch_counts()
+    got = ops.coded_matvec(a, x, ids, br)
+    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "split": 1, "multi": 0,
+                                                   "general": 0}
+    again = cmv.coded_matvec_split(a, x, ids, br)
+    want = ref.coded_matvec_ref(a, x, ids, br)
+    torch.cuda.synchronize()
+    assert got.shape == (nb, br) and got.dtype == a.dtype
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+    ops.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(8200, "float32"), (16392, "bfloat16")])
+def test_cuda_coded_matvec_split_passes(cuda, d, dtype):
+    """A block's share of more than one pass of 512 rows (2,000 blocks of 60
+    rows over the SMs): the partial sums and x's slices carried from one pass
+    to the next, against the plain version, with the same bits twice."""
+    from repro_torch.kernels import coded_matvec as cmv
+    n_blocks, nb, br = 2100, 2000, 60
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert nb * br // sms > 512
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    a = _cuda_rand(gen, (n_blocks * br, d), TORCH_DTYPE[dtype])
+    x = _cuda_rand(gen, (d,), TORCH_DTYPE[dtype])
+    ids = torch.randperm(n_blocks, generator=gen, device=cuda)[:nb].to(torch.int32)
+    got = cmv.coded_matvec_split(a, x, ids, br)
+    again = cmv.coded_matvec_split(a, x, ids, br)
+    want = ref.coded_matvec_ref(a, x, ids, br)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_coded_matvec_split_bad_id_gives_nan(cuda, dtype):
+    from repro_torch.kernels import coded_matvec as cmv
+    a = torch.ones(5 * 9, 16392, device=cuda, dtype=TORCH_DTYPE[dtype])
+    x = torch.ones(16392, device=cuda, dtype=TORCH_DTYPE[dtype])
+    ids = torch.tensor([1, 5, -1, 4], dtype=torch.int32, device=cuda)
+    out = cmv.coded_matvec_split(a, x, ids, 9)
+    torch.cuda.synchronize()
+    assert torch.all(out[[0, 3]] == torch.tensor(16392.0).to(out.dtype))
+    assert torch.isnan(out[[1, 2]].float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_coded_matvec_split_unaligned_x(cuda):
+    """An x view off a 16-byte boundary is copied to an aligned one before
+    its slices are bulk-copied."""
+    from repro_torch.kernels import coded_matvec as cmv
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a, flat = _cuda_rand(gen, (4 * 3, 8200)), _cuda_rand(gen, (8201,))
+    ids = torch.tensor([3, 1], dtype=torch.int32, device=cuda)
+    got = cmv.coded_matvec_split(a, flat[1:], ids, 3)
+    want = ref.coded_matvec_ref(a, flat[1:], ids, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL["float32"])
 
 
 @pytest.mark.cuda

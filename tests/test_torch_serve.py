@@ -164,9 +164,10 @@ def _hold_head_launches(head, x, speeds, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,designs", [(2, {"stream": 0, "multi": 1, "general": 0}),
-                                       (1, {"stream": 1, "multi": 0, "general": 0}),
-                                       (17, {"stream": 1, "multi": 1, "general": 0})])
+@pytest.mark.parametrize("b,designs", [
+    (2, {"stream": 0, "split": 0, "multi": 1, "general": 0}),
+    (1, {"stream": 1, "split": 0, "multi": 0, "general": 0}),
+    (17, {"stream": 1, "split": 0, "multi": 1, "general": 0})])
 def test_cuda_coded_head_launches(cuda, b, designs):
     rng = np.random.default_rng(b)
     head = torch.as_tensor(rng.standard_normal((256, 1000)), dtype=torch.float32, device=cuda)
@@ -194,5 +195,6 @@ def test_cuda_launch_serve_main(cuda, capsys):
     assert main(["--reduced", "--coded-head", "--requests", "3", "--max-new", "4"]) == 0
     assert ops.launch_counts() == {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1,
                                    "lstm_cell": 0}
-    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "multi": 1, "general": 0}
+    assert ops.design_counts()["coded_matvec"] == {"stream": 0, "split": 0, "multi": 1,
+                                                   "general": 0}
     assert "3 requests, 12 tokens" in capsys.readouterr().out
