@@ -143,19 +143,55 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        ``x @ head``, which reads as many bytes); the fastest of the three is
        the record's ``library_ms``.
 
-The last lines are the in-turn times as JSON, the per-kernel record as JSON
-(``ms``, ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the
-per-call times; ``launches`` the main path's, ``cluster_launches`` the
-cluster phase's, ``workload_launches`` phase 6's, ``serve_launches`` phase
-7's entry point's) and the device line.
+8. serving the other decoder families through the same entry point, one
+   arch at a time, each freed before the next (phase 7's model is freed
+   before the first): phi3.5-moe-42b-a6.6b at full width (d_model 4,096,
+   16 experts of d_ff 6,400) in bfloat16 at the most layers that leave
+   8 GiB of the card free after the build (28 of 32 on an 80 GB card; the
+   depth is printed), zamba2-1.2b (38 Mamba-2 layers, 7 applications of
+   the shared attention block) and xlstm-125m (9 mLSTM and 3 sLSTM
+   layers) whole, random weights from a seed:
+   (a) ``launch.serve.run(parse_args(["--arch", A, "--coded-head"]),
+       model)`` at the JAX package's defaults, the launches counted from 0:
+       exactly one ``mds_encode``, one ``coded_matvec`` (the multi design,
+       at each head's shape) and one ``mds_decode``, the coded head within
+       1e-3 of the dense product, 6 requests of 8 tokens served; the card's
+       peak memory of the build and of the serve;
+   (b) the same requests with each decode step between CUDA events
+       (tokens/s, the median step at B = 4 beside its bytes bound: every
+       weight, the K/V and the recurrent states; for phi also the bound of
+       the experts the step's tokens are routed to, counted outside the
+       timed steps), five steps under the profiler (kernel time, idle
+       share), then the same after a 4 × 2,048-token ``LM.prefill``;
+   (c) prefill of 12 tokens then one decode step against 13 decode steps
+       from scratch in float32, within 2e-3 of the largest logit: zamba2
+       and xlstm whole, phi over its first 4 layers at full width (about
+       21 GB) with capacity factor 8;
+   (d) bfloat16 against float32 of the same weights: for zamba2 and xlstm
+       16 decode steps at B = 4 of the whole model in both, every block of
+       every layer (attention, MLP, Mamba-2, mLSTM, sLSTM) run again in
+       float32 on the bfloat16 run's input and state, within 2e-2 (an
+       mLSTM block 0.1), and the logits after the first step within 0.25
+       (the later steps' drift is printed); phi's layer-0 MoE block on
+       4 × 16 normed positions within 2e-2, over the tokens routed alike
+       in both, any token routed
+       otherwise printed with its float32 gates and failing the run unless
+       they lie within twice the router's own bfloat16 error.
+
+The last lines are phase 8's records, phase 7's and phase 6's as JSON, the
+in-turn times as JSON, the per-kernel record as JSON (``ms``, ``plain_ms``
+and ``library_ms`` are device times; ``*call_ms`` the per-call times;
+``launches`` the main path's, ``cluster_launches`` the cluster phase's,
+``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
+point's, ``families_launches`` phase 8's three entry points') and the
+device line.
 The record of ``coded_matvec``'s multi design that the cluster's
 ``matmul`` rounds launch is at a chunk's shape at B = 8, and its
 ``launches`` are the cluster phase's; the
 two records of the split design, which only phase 6 launches, are at
 PageRank's and the filter's shapes, with phase 6's launches and the general
 design's time on the same operands (``old_ms``); the record of
-the multi design at the lm_head's shape has phase 7's.  Before them JSON
-lines hold phase 7's and phase 6's records.
+the multi design at the lm_head's shape has phase 7's.
 """
 
 from __future__ import annotations
@@ -211,6 +247,27 @@ HANDOFF_REL = 5e-2              # bfloat16 prefill handoff, over the largest log
 # LM.prefill, then greedy steps, each between CUDA events
 LONG_BATCH, LONG_CONTEXT, LONG_STEPS = 4, 2_048, 16
 BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense bfloat16 tensor cores
+# phase 8, the other decoder families through the same entry point:
+# phi3.5-moe at full width and MOE_LAYERS of its 32 layers (73.35 GB in
+# bfloat16, the most that leave FREE_AFTER_BUILD free on an 80 GB card;
+# the phase fails where they do not fit), zamba2-1.2b and xlstm-125m whole
+FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-125m")
+MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 28
+FREE_AFTER_BUILD = 8 * 2**30    # room for the caches, the prefill and the coded head
+MOE_F32_LAYERS = 4              # phi's float32 handoff at full width: about 21 GB
+F32_HANDOFF_REL = 2e-3          # float32 prefill handoff (tests/test_models.py's 2e-3)
+# bfloat16 against float32 of the same weights (measured on one H100 in
+# three runs): one block on the same input, at most 8.2e-3 for phi's MoE
+# block, 4.9e-3 attention, 5.8e-3 MLP, 7.0e-3 Mamba-2, 4.1e-3 sLSTM, and
+# 4.5e-2 mLSTM, whose normaliser |nᵀq| is a sum that can cancel; a whole
+# model's logits after its first decode step, 1.4e-2 for zamba2 and 0.154
+# for xlstm (the random weights amplify each block's rounding through the
+# layers; later steps compound it through the recurrent states, as the JAX
+# package's bfloat16 decode does, and are printed, not bounded)
+BF16_REL = 2e-2
+BF16_MLSTM_REL = 0.1
+BF16_LOGITS_REL = 0.25
+HANDOFF_TOKENS = 12
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -1138,17 +1195,32 @@ def workloads_phase(dev, call_ms, compare, in_turns) -> tuple:
 
 # -- 7. serving a dense LM at full width ------------------------------------
 
-def decode_step_bound(cfg, n_params: int, embed_params: int, b: int, pos: int) -> tuple:
+def decode_step_bound(model, b: int, pos: int, expert_share: float = 1.0) -> tuple:
     """The least time one decode step of ``b`` tokens at position ``pos``
-    takes: every weight but the embedding table read once (b of its rows),
-    the valid part of the KV cache read and one position written, the
-    logits written; against the bfloat16 peak for 2 operations a weight a
-    token.  Returns (ms, "bytes" or "operations")."""
-    item = 2                                  # bfloat16 weights and caches
-    kv = cfg.num_layers * 2 * b * cfg.kv_dim * item
-    n_bytes = ((n_params - embed_params) * item + b * cfg.d_model * item
-               + kv * (pos + 1) + kv + b * cfg.padded_vocab * 4)
-    flops = 2 * b * (n_params - embed_params) + 4 * cfg.num_layers * b * cfg.q_dim * (pos + 1)
+    takes on ``model``: every weight but the embedding table read once (b
+    of its rows; of the experts' weights, ``expert_share``), every
+    attention application's valid K/V read and one position written, each
+    recurrent state read and written, the logits written; against the
+    bfloat16 peak for 2 operations a weight a token (k of E experts a
+    token).  Returns (ms, "bytes" or "operations")."""
+    cfg = model.cfg
+    item = model.cache_dtype().itemsize
+    n_bytes = b * cfg.d_model * item + b * cfg.padded_vocab * 4
+    ops_params = 0.0
+    for name, p in model.named_parameters():
+        if name == "embed.embedding":
+            continue
+        expert = ".moe.w" in name
+        n_bytes += p.numel() * p.dtype.itemsize * (expert_share if expert else 1.0)
+        ops_params += p.numel() * (cfg.experts_per_token / cfg.num_experts if expert else 1.0)
+    caches = model.init_cache(b, 1)
+    attn = sum(1 for entry in caches for kind in entry if kind in ("attn", "shared"))
+    kv = attn * 2 * b * cfg.kv_dim * item
+    states = sum(t.numel() * t.element_size() for entry in caches
+                 for kind, state in entry.items() if kind not in ("attn", "shared")
+                 for t in state.values())
+    n_bytes += kv * (pos + 1) + kv + 2 * states
+    flops = 2 * b * ops_params + 4 * attn * b * cfg.q_dim * (pos + 1)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1182,6 +1254,189 @@ def device_kernel_ms(fn, steps: int) -> tuple:
             [(e.key[:60], e.count // steps, own(e) / 1e3 / steps) for e in top])
 
 
+def smoke_requests(cfg) -> list:
+    """The JAX package's serving defaults as ``launch.serve.run`` draws them
+    from seed 0: 6 requests of 8-token prompts, 8 new tokens each."""
+    import numpy as np
+
+    from repro_torch.runtime.serve_loop import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=8).astype(np.int32),
+                    max_new=8) for i in range(6)]
+
+
+def clocked_serve(model, dev, label: str) -> tuple:
+    """Serve the smoke requests (max_batch 4) with each decode step between
+    CUDA events.  Returns (tokens by rid, seconds on the host's clock,
+    [(batch, position, ms)]); fails unless each request got 8 tokens of
+    the vocabulary."""
+    import torch
+
+    from repro_torch.runtime.serve_loop import ServeConfig, serve
+
+    cfg = model.cfg
+    steps = []
+    decode_step = model.decode_step
+
+    def clocked(token, caches, pos):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = decode_step(token, caches, pos)
+        end.record()
+        steps.append((token.shape[0], pos, start, end))
+        return out
+
+    model.decode_step = clocked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve(model, smoke_requests(cfg), ServeConfig(max_batch=4), device=dev)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        del model.decode_step
+    if sorted(out) != list(range(6)) or any(
+            len(v) != 8 or not all(0 <= t < cfg.padded_vocab for t in v) for v in out.values()):
+        raise RuntimeError(f"{label}: serve returned {out}")
+    return out, serve_s, [(b, pos, s.elapsed_time(e)) for b, pos, s, e in steps]
+
+
+def short_context_busy(model, dev, warm=None):
+    """``device_kernel_ms`` of PROFILED_STEPS decode steps at B = 4 and a
+    context of at most 16, after 3 steps outside the profiler (run inside
+    the context manager ``warm`` where one is given)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    caches = model.init_cache(4, 16)
+    tok = torch.as_tensor(np.arange(1, 5)[:, None], device=dev)
+    pos = iter(range(16))
+    with warm or contextlib.nullcontext():
+        for _ in range(3):
+            model.decode_step(tok, caches, next(pos))
+    return device_kernel_ms(lambda: model.decode_step(tok, caches, next(pos)), PROFILED_STEPS)
+
+
+def long_context_decode(model, dev, label: str, context: int = LONG_CONTEXT) -> dict:
+    """LONG_BATCH prompts of ``context`` tokens through ``LM.prefill``, then
+    LONG_STEPS greedy decode steps, each between CUDA events, then
+    PROFILED_STEPS under the profiler; fails where the logits are not
+    finite.  Returns prefill_s, step_ms, decode_s, busy (``device_kernel_ms``'s
+    tuple or None), and the caches, last token and next position, for a
+    caller that goes on."""
+    import numpy as np
+    import torch
+
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (LONG_BATCH, context)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(toks, max_seq=context + LONG_STEPS + PROFILED_STEPS + 4)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cur = torch.argmax(logits, -1)[:, None]
+    long_steps = []
+    t0 = time.perf_counter()
+    for i in range(LONG_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, caches = model.decode_step(cur, caches, context + i)
+        end.record()
+        long_steps.append((start, end))
+        cur = torch.argmax(logits, -1)[:, None]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        raise RuntimeError(f"{label}: a decode step at a context of "
+                           f"{context} gave logits that are not finite")
+    pos = iter(range(context + LONG_STEPS, context + LONG_STEPS + PROFILED_STEPS))
+    busy = device_kernel_ms(lambda: model.decode_step(cur, caches, next(pos)), PROFILED_STEPS)
+    return dict(prefill_s=prefill_s, step_ms=[s_.elapsed_time(e_) for s_, e_ in long_steps],
+                decode_s=decode_s, busy=busy, caches=caches, token=cur,
+                pos=context + LONG_STEPS + PROFILED_STEPS)
+
+
+def hold_coded_head(label: str, head, dev, compare) -> dict:
+    """The coded lm_head of ``head`` (d × V, float32) as ``launch.serve``
+    runs it: a (6, 4) code, 8 chunks, the logits of x (2, d) under
+    SERVE_SPEEDS, with exactly one ``mds_encode``, one multi-design
+    ``coded_matvec`` and one ``mds_decode`` launched and the logits within
+    REL_ERR_LIMIT of float64; then each launch held against its plain
+    version on the same tensors at F32_TOL.  Returns the measurements and
+    the tensors, by name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coding import pad_rows
+    from repro_torch.core.s2c2 import general_allocation
+    from repro_torch.kernels import coded_matvec as cmv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mds_decode import mds_decode_into_plain
+    from repro_torch.kernels.mds_encode import mds_encode_plain
+    from repro_torch.runtime.serve_loop import CodedLMHead
+
+    d, vocab = head.shape
+    speeds = np.array(SERVE_SPEEDS)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, d)),
+                        dtype=torch.float32, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ch = CodedLMHead(head, n=6, k=4, chunks=8, device=dev)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    got = ch.logits(x, speeds)
+    torch.cuda.synchronize()
+    counts, designs = ops.launch_counts(), ops.design_counts()["coded_matvec"]
+    expect(f"{label}: the coded head's launches (one encode, one logits call)", counts,
+           {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
+    expect(f"{label}: the coded head's coded_matvec design", designs,
+           {"stream": 0, "split": 0, "multi": 1, "general": 0})
+    head_err = rel_err(got, x.double() @ head.double())
+    if not (got.shape == (2, vocab) and head_err <= REL_ERR_LIMIT):
+        raise RuntimeError(f"{label}: coded head {tuple(got.shape)}, error {head_err:.3e}")
+    torch.cuda.empty_cache()
+    n_, rows, _ = ch.coded.shape
+    rpc = rows // 8
+    g = torch.as_tensor(ch.code.generator, dtype=torch.float32, device=dev)
+    blocks = pad_rows(head.T, 4 * 8).reshape(4, rows, d).contiguous()
+    errs = {"mds_encode": compare(f"{label}: lm_head mds_encode (6, 4) x (4, {rows}, {d})",
+                                  ch.coded, mds_encode_plain(g, blocks), F32_TOL)}
+    torch.cuda.empty_cache()
+    begin, count, weights, responders = ch.cm.plan_tables(general_allocation(speeds, 4, 8))
+    ids, gather = ch.cm.device_tables(begin, count, responders, dev)
+    view, xt = ch.coded.view(n_ * rows, d), x.T.contiguous()
+    nb = ids.numel()
+    parts = cmv.coded_matvec_multi(view, xt, ids, rpc)
+    errs["coded_matvec"] = compare(f"{label}: lm_head coded_matvec multi, nb = {nb}, "
+                                   f"br = {rpc}, d = {d}, B = 2", parts,
+                                   cmv.coded_matvec_plain(view, xt, ids, rpc), F32_TOL)
+    flat = parts.reshape(nb, rpc * 2)
+
+    def y_out():
+        return torch.empty(4, 8, rpc * 2, device=dev).transpose(0, 1)
+
+    errs["mds_decode"] = compare(f"{label}: lm_head mds_decode_into (8, 4, 4) x {rpc * 2}",
+                                 ops.mds_decode_into(weights, flat, gather, y_out()),
+                                 mds_decode_into_plain(weights, flat, gather, y_out()), F32_TOL)
+    print(f"{label}: coded lm_head (6, 4), 8 chunks, float32 ({n_}, {rows}, {d}): encode "
+          f"{encode_s * 1e3:.1f} ms on the host's clock; logits of x (2, {d}) under speeds "
+          f"{SERVE_SPEEDS}: error {head_err:.3e} of max |x·head| against float64 "
+          f"(limit {REL_ERR_LIMIT}); launches {counts}, coded_matvec by design {designs}; "
+          "against their plain versions, max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (rtol = atol = {F32_TOL})", flush=True)
+    return dict(ch=ch, x=x, speeds=speeds, view=view, xt=xt, ids=ids, rpc=rpc, nb=nb,
+                weights=weights, gather=gather, flat=flat, y_out=y_out, g=g, blocks=blocks,
+                head_err=head_err, encode_s=encode_s, counts=counts, errs=errs)
+
+
 def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     """Phase 7: ``repro_torch.launch.serve`` at full width and depth on the
     card.  Returns the entry point's launches by record name, the record of
@@ -1193,15 +1448,11 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     import numpy as np
     import torch
 
-    from repro_torch.core.coding import pad_rows
-    from repro_torch.core.s2c2 import general_allocation
     from repro_torch.kernels import coded_matvec as cmv
     from repro_torch.kernels import ops
     from repro_torch.kernels.mds_decode import mds_decode_into_plain
-    from repro_torch.kernels.mds_encode import mds_encode_plain
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.params import param_count, tree_bytes
-    from repro_torch.runtime.serve_loop import CodedLMHead, Request, ServeConfig, serve
 
     rec = {}
     # (a) the entry point, as a user runs it: the JAX package's defaults
@@ -1245,42 +1496,17 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     cfg = model.cfg
     specs = model.specs()
     n_params, n_bytes = param_count(specs), tree_bytes(specs)
-    embed_params = model.embed["embedding"].numel()
     print(f"serve (b): {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params:,} parameters, {n_bytes / 1e9:.3f} GB ({cfg.dtype}, norms float32), "
           f"built on the card from a seeded generator in {build_s:.2f} s", flush=True)
 
     # (c) serve the requests of (a), each decode step between CUDA events
-    steps = []
-    decode_step = model.decode_step
-
-    def clocked(token, caches, pos):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = decode_step(token, caches, pos)
-        end.record()
-        steps.append((token.shape[0], pos, start, end))
-        return out
-
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, size=8).astype(np.int32),
-                    max_new=8) for i in range(6)]
-    model.decode_step = clocked
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = serve(model, reqs, ServeConfig(max_batch=4), device=dev)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    del model.decode_step
+    out, serve_s, steps = clocked_serve(model, dev, "phase 7")
     tokens = sum(len(v) for v in out.values())
-    if sorted(out) != list(range(6)) or any(
-            len(v) != 8 or not all(0 <= t < cfg.padded_vocab for t in v) for v in out.values()):
-        raise RuntimeError(f"phase 7: serve returned {out}")
     same = all(f"request {rid}: {out[rid]}" in log.getvalue() for rid in range(3))
-    step_ms = [s.elapsed_time(e) for _, _, s, e in steps]
-    bounds = [decode_step_bound(cfg, n_params, embed_params, b, pos) for b, pos, _, _ in steps]
-    full = [i for i, (b, _, _, _) in enumerate(steps) if b == 4]
+    step_ms = [ms for _, _, ms in steps]
+    bounds = [decode_step_bound(model, b, pos) for b, pos, _ in steps]
+    full = [i for i, (b, _, _) in enumerate(steps) if b == 4]
     med = statistics.median(step_ms[i] for i in full)
     bound = statistics.median(bounds[i][0] for i in full)
     rec.update(serve_s=serve_s, tokens=tokens, tokens_per_s=tokens / serve_s,
@@ -1288,7 +1514,7 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
                step_bound_ms=bound, step_bound_by=bounds[full[0]][1], steps=len(steps),
                same_tokens_as_main=same)
     print(f"serve (c), smoke traffic at a context of at most 16: "
-          f"{len(reqs)} requests, {tokens} tokens in {serve_s * 1e3:.1f} ms "
+          f"{len(out)} requests, {tokens} tokens in {serve_s * 1e3:.1f} ms "
           f"({tokens / serve_s:.1f} tokens/s), {len(steps)} decode steps; a step at B = 4 "
           f"between CUDA events: median {med:.3f} ms (min {min(step_ms):.3f}, max "
           f"{max(step_ms):.3f} over all steps) against a bound of {bound:.3f} ms "
@@ -1297,12 +1523,7 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
 
     # (d) the device's share of a step: the kernels of PROFILED_STEPS steps
     # at B = 4, from the profiler
-    caches = model.init_cache(4, 16)
-    tok = torch.as_tensor(np.arange(1, 5)[:, None], device=dev)
-    pos = iter(range(16))
-    for _ in range(3):
-        model.decode_step(tok, caches, next(pos))
-    busy = device_kernel_ms(lambda: model.decode_step(tok, caches, next(pos)), PROFILED_STEPS)
+    busy = short_context_busy(model, dev)
     if busy is None:
         print("serve (d): the profiler recorded no device time: device busy share not measured",
               flush=True)
@@ -1317,40 +1538,15 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
               f"median step (a profiled step takes {host_ms:.3f} ms on the host's clock); "
               "by kernel, launches and ms a step: " + "; ".join(
                   f"{name} {n} {ms:.3f}" for name, n, ms in top), flush=True)
-    del caches
 
     # (d2) a decode step at a real context: LONG_BATCH prompts of
     # LONG_CONTEXT tokens through LM.prefill, then LONG_STEPS greedy steps
     # between CUDA events, then PROFILED_STEPS under the profiler
-    toks = torch.as_tensor(np.random.default_rng(4).integers(
-        1, cfg.vocab_size, (LONG_BATCH, LONG_CONTEXT)), device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = model.prefill(toks, max_seq=LONG_CONTEXT + LONG_STEPS + PROFILED_STEPS)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    cur = torch.argmax(logits, -1)[:, None]
-    long_steps = []
-    t0 = time.perf_counter()
-    for i in range(LONG_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        logits, caches = model.decode_step(cur, caches, LONG_CONTEXT + i)
-        end.record()
-        long_steps.append((start, end))
-        cur = torch.argmax(logits, -1)[:, None]
-    torch.cuda.synchronize()
-    long_s = time.perf_counter() - t0
-    if not torch.isfinite(logits).all():
-        raise RuntimeError("phase 7: a decode step at a context of "
-                           f"{LONG_CONTEXT} gave logits that are not finite")
-    long_ms = [s_.elapsed_time(e_) for s_, e_ in long_steps]
+    long = long_context_decode(model, dev, "phase 7")
+    prefill_s, long_ms, long_s, busy = (long[k] for k in ("prefill_s", "step_ms", "decode_s",
+                                                         "busy"))
     long_med = statistics.median(long_ms)
-    long_bound, long_by = decode_step_bound(cfg, n_params, embed_params, LONG_BATCH,
-                                            LONG_CONTEXT + LONG_STEPS // 2)
-    pos = iter(range(LONG_CONTEXT + LONG_STEPS, LONG_CONTEXT + LONG_STEPS + PROFILED_STEPS))
-    busy = device_kernel_ms(lambda: model.decode_step(cur, caches, next(pos)), PROFILED_STEPS)
+    long_bound, long_by = decode_step_bound(model, LONG_BATCH, LONG_CONTEXT + LONG_STEPS // 2)
     rec.update(long_batch=LONG_BATCH, long_context=LONG_CONTEXT, long_prefill_s=prefill_s,
                long_step_ms_median=long_med, long_step_ms_min=min(long_ms),
                long_step_ms_max=max(long_ms), long_step_bound_ms=long_bound,
@@ -1368,7 +1564,7 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
                  f"a step, so the device idles {1 - busy_ms / long_med:.1%} of the median "
                  "step; by kernel: " + "; ".join(f"{name} {n} {ms:.3f}" for name, n, ms in top))
     print(line, flush=True)
-    del caches, logits, toks
+    del long
     torch.cuda.empty_cache()
 
     # (e) the prefill handoff at full width, in bfloat16, against decoding
@@ -1395,58 +1591,13 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     torch.cuda.empty_cache()
 
     # (f) the coded lm_head at its full shape: (6, 4) code, 8 chunks, float32
-    speeds = np.array(SERVE_SPEEDS)
-    x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, cfg.d_model)),
-                        dtype=torch.float32, device=dev)
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ch = CodedLMHead(head, n=6, k=4, chunks=8, device=dev)
-    torch.cuda.synchronize()
-    encode_s = time.perf_counter() - t0
-    got = ch.logits(x, speeds)
-    torch.cuda.synchronize()
-    head_counts, head_designs = ops.launch_counts(), ops.design_counts()["coded_matvec"]
-    expect("phase 7: the coded head's launches (one encode, one logits call)", head_counts,
-           {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
-    expect("phase 7: the coded head's coded_matvec design", head_designs,
-           {"stream": 0, "split": 0, "multi": 1, "general": 0})
-    want = x.double() @ head.double()
-    head_err = rel_err(got, want)
-    if not (got.shape == (2, cfg.vocab_size) and head_err <= REL_ERR_LIMIT):
-        raise RuntimeError(f"phase 7: coded head {tuple(got.shape)}, error {head_err:.3e}")
-    del want
-    torch.cuda.empty_cache()
-    # each launch against its plain version on the same tensors
+    h = hold_coded_head("serve (f)", head, dev, compare)
+    ch, x, speeds, view, xt, ids, rpc, nb, weights, gather, flat, y_out, g, blocks = (
+        h[k] for k in ("ch", "x", "speeds", "view", "xt", "ids", "rpc", "nb", "weights",
+                       "gather", "flat", "y_out", "g", "blocks"))
+    head_err, encode_s, head_counts, errs = (h[k] for k in ("head_err", "encode_s", "counts",
+                                                            "errs"))
     n_, rows, d = ch.coded.shape
-    rpc = rows // 8
-    g = torch.as_tensor(ch.code.generator, dtype=torch.float32, device=dev)
-    blocks = pad_rows(head.T, 4 * 8).reshape(4, rows, d).contiguous()
-    errs = {"mds_encode": compare("lm_head mds_encode (6, 4) x (4, 32768, 5120)", ch.coded,
-                                  mds_encode_plain(g, blocks), F32_TOL)}
-    torch.cuda.empty_cache()
-    begin, count, weights, responders = ch.cm.plan_tables(general_allocation(speeds, 4, 8))
-    ids, gather = ch.cm.device_tables(begin, count, responders, dev)
-    view, xt = ch.coded.view(n_ * rows, d), x.T.contiguous()
-    nb = ids.numel()
-    parts = cmv.coded_matvec_multi(view, xt, ids, rpc)
-    errs["coded_matvec"] = compare(f"lm_head coded_matvec multi, nb = {nb}, br = {rpc}, "
-                                   f"d = {d}, B = 2", parts,
-                                   cmv.coded_matvec_plain(view, xt, ids, rpc), F32_TOL)
-    flat = parts.reshape(nb, rpc * 2)
-
-    def y_out():
-        return torch.empty(4, 8, rpc * 2, device=dev).transpose(0, 1)
-
-    errs["mds_decode"] = compare(f"lm_head mds_decode_into (8, 4, 4) x {rpc * 2}",
-                                 ops.mds_decode_into(weights, flat, gather, y_out()),
-                                 mds_decode_into_plain(weights, flat, gather, y_out()), F32_TOL)
-    print(f"serve (f): coded lm_head (6, 4), 8 chunks, float32 ({n_}, {rows}, {d}): encode "
-          f"{encode_s * 1e3:.1f} ms on the host's clock; logits of x (2, {d}) under speeds "
-          f"{SERVE_SPEEDS}: error {head_err:.3e} of max |x·head| against float64 on the card "
-          f"(limit {REL_ERR_LIMIT}); launches {head_counts}; against their plain versions, max "
-          "abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f" (rtol = atol = {F32_TOL})", flush=True)
 
     # (g) times: the whole call on the host's clock, and the device work of
     # the kernels against torch.matmul and the plain versions, in turns
@@ -1508,12 +1659,417 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
                   + f" (the gathered rows ({nb * rpc}, {d}), x (2, {d}))", design="multi",
                   shape=f"lm_head: nb = {nb} blocks of {rpc} rows, d = {d}, float32, B = 2",
                   cluster_launches=0, workload_launches=0)
-    del ch, head, blocks, sel, parts, flat
+    del h, ch, head, blocks, sel, flat
     torch.cuda.empty_cache()
     launches = {"coded_matvec": designs["stream"], "coded_matvec (multi design)": 0,
                 "mds_encode": counts["mds_encode"], "mds_decode": counts["mds_decode"],
                 "lstm_cell": counts["lstm_cell"], record["name"]: designs["multi"]}
     return launches, record, rec
+
+
+# -- 8. serving the MoE, hybrid and xLSTM decoders ---------------------------
+
+class RoutedExperts:
+    """While entered, each ``moe_apply`` call also records how many distinct
+    experts its tokens are routed to (a host sync each: outside timed
+    work)."""
+
+    def __init__(self):
+        self.counts = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe as MOE
+
+        self._apply = apply = MOE.moe_apply
+
+        def counting(p, x, cfg):
+            _, _, experts = MOE.route(p, x.reshape(-1, x.shape[-1]), cfg)
+            self.counts.append(torch.unique(experts).numel())
+            return apply(p, x, cfg)
+
+        MOE.moe_apply = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+
+        MOE.moe_apply = self._apply
+
+    def share(self, cfg) -> float:
+        """The mean share of the experts routed to per call."""
+        return statistics.mean(self.counts) / cfg.num_experts
+
+
+class BlockErrors:
+    """While entered, each attention, MLP and recurrent block and the logits
+    projection that a decode step runs is run again in float32 on float32
+    copies of its weights, input and cache or state, and its output's error
+    over the float32 output's largest entry is recorded by function name."""
+
+    NAMES = ("attn_decode", "mlp_apply", "mamba_decode", "mlstm_decode", "slstm_decode",
+             "head_apply")
+
+    def __init__(self):
+        self.errors = {}
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers as L
+        from repro_torch.models import ssm as SSM
+
+        def up(v):
+            if isinstance(v, torch.Tensor):
+                return v.float().clone()
+            return {k: up(t) for k, t in v.items()} if hasattr(v, "items") else v
+
+        self._saved = []
+        for name in self.NAMES:
+            module = L if hasattr(L, name) else SSM
+            run = getattr(module, name)
+
+            def checked(p, x, cfg, *rest, run=run, name=name, **kw):
+                ref_rest = [up(r) for r in rest]     # before run writes a cache in place
+                out = run(p, x, cfg, *rest, **kw)
+                ref = run(up(p), x.float(), cfg, *ref_rest, **kw)
+                y, y32 = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+                self.errors.setdefault(name, []).append(rel_err(y, y32.double()))
+                return out
+
+            self._saved.append((module, name, run))
+            setattr(module, name, checked)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, run in self._saved:
+            setattr(module, name, run)
+
+
+def check_fits(cfg, dev) -> None:
+    """Fail unless ``cfg``'s parameters leave FREE_AFTER_BUILD of the card's
+    free memory after its build."""
+    import torch
+
+    from repro_torch.models import LM
+
+    need = sum(p.numel() * p.dtype.itemsize for p in LM(cfg, device="meta").parameters())
+    free, _ = torch.cuda.mem_get_info(dev)
+    if free - need < FREE_AFTER_BUILD:
+        raise RuntimeError(f"{cfg.name} at {cfg.num_layers} layers takes {need / 1e9:.2f} GB "
+                           f"of the card's {free / 1e9:.2f} GB free, leaving less than "
+                           f"{FREE_AFTER_BUILD / 2**30:.0f} GiB")
+
+
+def handoff_error(model, dev, seed: int) -> tuple:
+    """prefill(HANDOFF_TOKENS) then one decode step, against decoding all
+    HANDOFF_TOKENS + 1 tokens from scratch: (error over the largest logit,
+    argmax equal)."""
+    import numpy as np
+    import torch
+
+    n = HANDOFF_TOKENS
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(1, model.cfg.vocab_size,
+                                                                (1, n + 1)), device=dev)
+    _, caches = model.prefill(toks[:, :n], max_seq=n + 1)
+    lg_a, _ = model.decode_step(toks[:, n:n + 1], caches, n)
+    scratch = model.init_cache(1, n + 1)
+    for t in range(n + 1):
+        lg_b, scratch = model.decode_step(toks[:, t:t + 1], scratch, t)
+    if not torch.isfinite(lg_a).all():
+        raise RuntimeError(f"{model.cfg.name}: the prefill handoff's logits are not finite")
+    return rel_err(lg_a, lg_b.double()), bool(torch.equal(lg_a.argmax(-1), lg_b.argmax(-1)))
+
+
+def moe_bf16_error(model, dev) -> dict:
+    """Layer 0's MoE block of the bfloat16 ``model`` against the same
+    weights in float32, on one input of 4 × 16 normed positions, capacity
+    factor 8 (no drops).  A token whose experts differ between the two is
+    a near tie only if its float32 gates of the swapped experts lie within
+    twice the router's own bfloat16 error; the block's error is taken over
+    the tokens routed alike.  Returns the record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    cfg = dataclasses.replace(model.cfg, moe_capacity_factor=8.0)
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal((4, 16, cfg.d_model)),
+                        dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        p16 = {name: t if t.dtype == torch.float32 and name == "router" else
+               t.to(torch.bfloat16) for name, t in model.layers[0]["moe"].items()}
+        p32 = {name: t.float() for name, t in p16.items()}
+        h32 = L.apply_norm(model.layers[0]["norm2"], x)
+        h16 = h32.to(torch.bfloat16)
+        out32, out16 = MOE.moe_apply(p32, h32, cfg), MOE.moe_apply(p16, h16, cfg)
+        g32, _, i32 = MOE.route(p32, h32.reshape(-1, cfg.d_model), cfg)
+        g16, _, i16 = MOE.route(p16, h16.reshape(-1, cfg.d_model), cfg)
+    gate_err = float((g16 - g32).abs().max())
+    alike = (i32.sort(-1).values == i16.sort(-1).values).all(-1)
+    flips = []
+    for t in torch.nonzero(~alike).flatten().tolist():
+        swapped = set(i32[t].tolist()) ^ set(i16[t].tolist())
+        gates = sorted(float(g32[t, e]) for e in swapped)
+        flips.append({"token": t, "float32_gates_of_the_swapped_experts": gates})
+        if gates[-1] - gates[0] > 2 * gate_err:
+            raise RuntimeError(f"{cfg.name}: token {t}'s experts differ between bfloat16 and "
+                               f"float32 beyond a near tie: gates {gates}, router error "
+                               f"{gate_err:.3e}")
+    keep = alike.view(4, 16)
+    err = rel_err(out16[keep], out32[keep].double())
+    return dict(moe_bf16_rel_err=err, moe_router_bf16_err=gate_err, moe_tokens=int(alike.numel()),
+                moe_flips=flips)
+
+
+def serve_family(arch: str, dev, compare, reduced: bool) -> tuple:
+    """Phase 8 for one arch: returns its launches, its record."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model
+    from repro_torch.models.params import param_count, tree_bytes
+
+    label = f"phase 8 {arch}"
+    rec = {}
+    # (a) the entry point as a user runs it (the model built once and kept)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    args = launch_serve.parse_args(["--arch", arch, "--coded-head"]
+                                   + (["--reduced", "--device", "cpu"] if reduced else []))
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        if arch == MOE_ARCH:
+            cfg = get_config(arch)
+            if reduced:
+                cfg = cfg.reduced()
+            else:
+                cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+                check_fits(cfg, dev)
+            model = build_model(cfg, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(args.seed))
+        else:
+            model = launch_serve.build(args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated() / 1e9
+        rc = launch_serve.run(args, model)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts, designs = ops.launch_counts(), ops.design_counts()["coded_matvec"]
+    print(log.getvalue(), end="", flush=True)
+    expect(f"{label}: serve.run's exit code", rc, 0)
+    expect(f"{label}: serve.run's launches", counts,
+           {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
+    expect(f"{label}: serve.run's coded_matvec designs", designs,
+           {"stream": 0, "split": 0, "multi": 1, "general": 0})
+    head_err = float(re.search(r"rel_err=(\S+)", log.getvalue())[1])
+    if not head_err <= REL_ERR_LIMIT:
+        raise RuntimeError(f"{label}: the coded head's error {head_err} > {REL_ERR_LIMIT}")
+    if "6 requests, 48 tokens" not in log.getvalue():
+        raise RuntimeError(f"{label}: serve.run did not serve 6 requests of 8 tokens")
+    cfg = model.cfg
+    specs = model.specs()
+    rec.update(arch=arch, layers=cfg.num_layers, full_layers=get_config(arch).num_layers,
+               d_model=cfg.d_model, params=param_count(specs), gb=tree_bytes(specs) / 1e9,
+               build_s=build_s, build_peak_gb=build_peak, main_s=main_s,
+               main_peak_gb=torch.cuda.max_memory_allocated() / 1e9, coded_head_err=head_err,
+               head=f"d = {cfg.d_model} x V = {cfg.padded_vocab}", launches=counts,
+               designs=designs)
+    print(f"{label} (a): {cfg.num_layers} of {rec['full_layers']} layers, d_model "
+          f"{cfg.d_model}, {rec['params']:,} parameters, {rec['gb']:.3f} GB ({cfg.dtype}); "
+          f"built in {build_s:.2f} s (card peak {build_peak:.1f} GB), build and serve.run "
+          f"{main_s:.1f} s (card peak {rec['main_peak_gb']:.1f} GB); coded head "
+          f"{rec['head']} error {head_err:.2e}; launches {counts}, coded_matvec by design "
+          f"{designs}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    # (b) tokens/s and a decode step at a context of at most 16 and after
+    # a prefill of LONG_CONTEXT tokens, beside its bound(s) and its kernels
+    moe = cfg.num_experts > 0
+    context = LONG_CONTEXT if not reduced else 256
+    out, serve_s, steps = clocked_serve(model, dev, label)
+    tokens = sum(len(v) for v in out.values())
+    full = [(pos, ms) for b, pos, ms in steps if b == 4]
+    med = statistics.median(ms for _, ms in full)
+    mid = statistics.median(pos for pos, _ in full)
+    routed = RoutedExperts() if moe else None
+    busy = short_context_busy(model, dev, routed)
+    bound, by = decode_step_bound(model, 4, mid)
+    rec.update(tokens=tokens, serve_s=serve_s, tokens_per_s=tokens / serve_s,
+               step_ms_median=med, step_ms_min=min(ms for _, _, ms in steps),
+               step_ms_max=max(ms for _, _, ms in steps), steps=len(steps),
+               step_bound_ms=bound, step_bound_by=by)
+    line = (f"{label} (b): {tokens} tokens in {serve_s * 1e3:.1f} ms ({tokens / serve_s:.1f} "
+            f"tokens/s), {len(steps)} decode steps; a step at B = 4, context at most 16, "
+            f"between CUDA events: median {med:.3f} ms (min {rec['step_ms_min']:.3f}, max "
+            f"{rec['step_ms_max']:.3f}) against a bound of {bound:.3f} ms ({by}")
+    if moe:
+        share = routed.share(cfg)
+        routed_bound, _ = decode_step_bound(model, 4, mid, share)
+        rec.update(routed_share=share, routed_bound_ms=routed_bound)
+        line += (f", every expert read); {share * cfg.num_experts:.2f} of {cfg.num_experts} "
+                 f"experts routed a layer: bound {routed_bound:.3f} ms for those alone")
+    else:
+        line += ")"
+    if busy is not None:
+        busy_ms, host_ms, n_kernels, top = busy
+        rec.update(step_device_busy_ms=busy_ms, step_kernel_launches=n_kernels,
+                   step_idle_share=1 - busy_ms / med, step_top_kernels=top)
+        line += (f"; under the profiler {n_kernels:.0f} launches and {busy_ms:.3f} ms of "
+                 f"kernels a step, idle {1 - busy_ms / med:.1%} of the median; by kernel: "
+                 + "; ".join(f"{name} {n} {ms:.3f}" for name, n, ms in top))
+    print(line, flush=True)
+
+    long = long_context_decode(model, dev, label, context)
+    long_med = statistics.median(long["step_ms"])
+    long_bound, long_by = decode_step_bound(model, LONG_BATCH, context + LONG_STEPS // 2)
+    rec.update(long_context=context, long_prefill_s=long["prefill_s"],
+               long_step_ms_median=long_med, long_step_ms_min=min(long["step_ms"]),
+               long_step_ms_max=max(long["step_ms"]), long_step_bound_ms=long_bound,
+               long_step_bound_by=long_by,
+               long_tokens_per_s=LONG_BATCH * LONG_STEPS / long["decode_s"])
+    line = (f"{label} (b): {LONG_BATCH} prompts of {context} tokens: prefill "
+            f"{long['prefill_s'] * 1e3:.1f} ms on the host's clock; {LONG_STEPS} decode steps "
+            f"{rec['long_tokens_per_s']:.1f} tokens/s, a step between CUDA events median "
+            f"{long_med:.3f} ms (min {rec['long_step_ms_min']:.3f}, max "
+            f"{rec['long_step_ms_max']:.3f}) against a bound of {long_bound:.3f} ms ({long_by}")
+    if moe:
+        with RoutedExperts() as long_routed:
+            cur, caches = long["token"], long["caches"]
+            for i in range(3):
+                logits, caches = model.decode_step(cur, caches, long["pos"] + i)
+                cur = torch.argmax(logits, -1)[:, None]
+        share = long_routed.share(cfg)
+        rec.update(long_routed_share=share, long_routed_bound_ms=decode_step_bound(
+            model, LONG_BATCH, context + LONG_STEPS // 2, share)[0])
+        line += (f", every expert read); {share * cfg.num_experts:.2f} experts routed a layer: "
+                 f"bound {rec['long_routed_bound_ms']:.3f} ms")
+    else:
+        line += ")"
+    if long["busy"] is not None:
+        busy_ms, _, n_kernels, top = long["busy"]
+        rec.update(long_step_device_busy_ms=busy_ms, long_step_kernel_launches=n_kernels,
+                   long_step_idle_share=1 - busy_ms / long_med, long_step_top_kernels=top)
+        line += (f"; under the profiler {n_kernels:.0f} launches and {busy_ms:.3f} ms of kernels "
+                 f"a step, idle {1 - busy_ms / long_med:.1%}; by kernel: " + "; ".join(
+                     f"{name} {n} {ms:.3f}" for name, n, ms in top))
+    print(line, flush=True)
+    del long
+    rec["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    # (c) the float32 prefill handoff and (d) bfloat16 against float32 of the
+    # same weights: phi's MoE block on the model of (a), then its first
+    # MOE_F32_LAYERS at full width in float32 (the model of (a) freed first);
+    # zamba2 and xlstm whole, a float32 copy of the model of (a)
+    head = model.embed["head"].detach().float()
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    if moe:
+        rec.update(moe_bf16_error(model, dev))
+        bf16_err = rec["moe_bf16_rel_err"]
+        what = (f"layer 0's MoE block on 4 x 16 positions ({len(rec['moe_flips'])} of "
+                f"{rec['moe_tokens']} tokens routed otherwise, near ties: {rec['moe_flips']})")
+        del model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        f32 = build_model(dataclasses.replace(
+            f32_cfg, num_layers=min(MOE_F32_LAYERS, cfg.num_layers), moe_capacity_factor=8.0),
+            device=dev, generator=gen)
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        f32 = build_model(f32_cfg, device=dev, generator=gen)
+        with torch.no_grad():
+            for dst, src in zip(f32.parameters(), model.parameters()):
+                dst.copy_(src)
+        toks = torch.as_tensor(np.random.default_rng(7).integers(
+            1, cfg.vocab_size, (4, 16)), device=dev)
+        c16, c32 = model.init_cache(4, 16), f32.init_cache(4, 16)
+        errs, agree, blocks = [], 0, BlockErrors()
+        for t in range(16):
+            with blocks:
+                lg16, c16 = model.decode_step(toks[:, t:t + 1], c16, t)
+            lg32, c32 = f32.decode_step(toks[:, t:t + 1], c32, t)
+            errs.append(rel_err(lg16, lg32.double()))
+            agree += int((lg16.argmax(-1) == lg32.argmax(-1)).sum())
+        worst = {name: max(e) for name, e in blocks.errors.items()}
+        over = {name: e for name, e in worst.items()
+                if not e <= (BF16_MLSTM_REL if name == "mlstm_decode" else BF16_REL)}
+        bf16_err = max(e for name, e in worst.items() if name != "mlstm_decode")
+        rec.update(bf16_block_rel_err=worst, bf16_step_rel_errs=errs,
+                   bf16_argmax_agree=agree / 64)
+        what = (f"each block of every layer on the bfloat16 run's input, 16 decode steps at "
+                f"B = 4, the worst by block {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}"
+                f"; the whole model's logits after the first step {errs[0]:.3e} (limit "
+                f"{BF16_LOGITS_REL}), then by step {', '.join(f'{e:.2e}' for e in errs[1:])}, "
+                f"argmax equal at {agree} of 64")
+        del model, c16, c32
+        if over:
+            raise RuntimeError(f"{label}: bfloat16 against float32 of the same block, {over} "
+                               f"over {BF16_REL} (mlstm_decode {BF16_MLSTM_REL})")
+        if not errs[0] <= BF16_LOGITS_REL:
+            raise RuntimeError(f"{label}: bfloat16 against float32, the logits of the first "
+                               f"decode step: {errs[0]:.3e} > {BF16_LOGITS_REL}")
+    if not bf16_err <= BF16_REL:
+        raise RuntimeError(f"{label}: bfloat16 against float32, {what}: {bf16_err:.3e} > "
+                           f"{BF16_REL}")
+    handoff, same = handoff_error(f32, dev, 3)
+    if not handoff <= F32_HANDOFF_REL:
+        raise RuntimeError(f"{label}: float32 prefill handoff error {handoff:.3e} > "
+                           f"{F32_HANDOFF_REL}")
+    rec.update(f32_layers=f32.cfg.num_layers, f32_handoff_rel_err=handoff,
+               f32_handoff_argmax_equal=same, f32_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{label} (c): float32, {f32.cfg.num_layers} layers"
+          f"{' at full width, capacity factor 8' if moe else ', the whole model'}: "
+          f"prefill({HANDOFF_TOKENS}) then a decode "
+          f"step against {HANDOFF_TOKENS + 1} decode steps from scratch, error {handoff:.3e} of "
+          f"the largest logit (limit {F32_HANDOFF_REL}), argmax equal: {same}; (d) bfloat16 "
+          f"against float32 of the same weights, {what}: {bf16_err:.3e} (limit {BF16_REL}); "
+          f"card peak {rec['f32_peak_gb']:.1f} GB", flush=True)
+    del f32
+    torch.cuda.empty_cache()
+
+    # (e) the coded head of (a) at this arch's head, each launch against its
+    # plain version on the same tensors
+    hold = hold_coded_head(f"{label} (e)", head, dev, compare)
+    rec.update(head_hold_err=hold["head_err"], head_kernel_vs_plain=hold["errs"])
+    del hold, head
+    torch.cuda.empty_cache()
+    launches = {"coded_matvec": designs["stream"], "mds_encode": counts["mds_encode"],
+                "mds_decode": counts["mds_decode"], "lstm_cell": counts["lstm_cell"],
+                "coded_matvec (multi design, lm_head)": designs["multi"]}
+    return launches, rec
+
+
+def families_phase(dev, compare, reduced: bool = False) -> tuple:
+    """Phase 8: ``repro_torch.launch.serve`` on phi3.5-moe (full width),
+    zamba2-1.2b and xlstm-125m (whole) on the card; ``compare`` holds a
+    kernel's output against its plain version, ``reduced`` runs the
+    reduced configs, as the CPU test does.  Returns the launches of the
+    three entry points' runs by record name, and the phase's record by
+    arch."""
+    launches, records = {}, {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        counts, records[arch] = serve_family(arch, dev, compare, reduced)
+        records[arch]["phase_s"] = time.perf_counter() - t0
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    return launches, records
 
 
 def main() -> int:
@@ -2047,6 +2603,14 @@ def main() -> int:
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["serve_launches"] = serve_counts.get(rec["name"], 0)
 
+    # -- 8. serving the MoE, hybrid and xLSTM decoders -------------------------
+    t0 = time.perf_counter()
+    family_counts, families = families_phase(dev, compare)
+    print(f"families phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
+        rec["families_launches"] = family_counts.get(rec["name"], 0)
+
+    print(json.dumps({"families": families}))
     print(json.dumps({"serve": served}))
     print(json.dumps({"workloads": workloads}))
     print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))

@@ -12,9 +12,10 @@ and on the CPU, on the reduced config:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \\
         --reduced --device cpu --coded-head
 
-The weights are random, drawn from ``--seed``.  An arch whose family is
-not ported yet (MoE, SSM, hybrid, encoder-decoder) raises
-``NotImplementedError``.  ``--coded-head`` first
+The weights are random, drawn from ``--seed``.  Every decoder arch is
+served (the dense, vlm, MoE, SSM and hybrid families); the
+encoder-decoder (seamless-m4t-large-v2) raises ``NotImplementedError``,
+and the JAX package's entry point refuses it too.  ``--coded-head`` first
 validates the S²C²-coded lm_head (a float32 copy of the head, (n, k) =
 (6, 4), 8 chunks) against the dense product under two stragglers.
 

@@ -1,11 +1,13 @@
-"""Architecture zoo on PyTorch: the decoder LM of the ``attn_mlp`` layer
-kind (dense and vlm families), ParamSpec-based.
+"""Architecture zoo on PyTorch: the decoder LM of every layer kind (the
+dense, vlm, MoE, SSM and hybrid families), ParamSpec-based.
 
 * :mod:`repro_torch.models.params` — specs, initialisation, counts.
 * :mod:`repro_torch.models.layers` — norms, RoPE, attention, MLPs, head.
+* :mod:`repro_torch.models.moe` — the top-k Mixture-of-Experts block.
+* :mod:`repro_torch.models.ssm` — Mamba-2, mLSTM and sLSTM blocks.
 * :mod:`repro_torch.models.lm` — :class:`LM`.
 
-The MoE, SSM, hybrid and encoder-decoder families raise
+The encoder-decoder family (seamless-m4t-large-v2) raises
 ``NotImplementedError`` (ROADMAP.md §1 item 1).
 """
 

@@ -1,29 +1,36 @@
-"""Decoder LM for the ``attn_mlp`` layer kind: the dense and vlm families.
+"""Decoder LM for every layer kind: the dense, vlm, MoE, SSM and hybrid
+families.
 
-The port of the JAX package's ``models/lm.py`` for mistral-nemo-12b,
-mistral-large-123b, nemotron-4-340b (squared-ReLU, LayerNorm), gemma3-27b
-(local/global attention, GeGLU, softcap, tied embeddings) and internvl2-26b
-(the ``vit_stub`` projector).  :class:`LM` is an ``nn.Module`` holding its
-parameters on one device, one block per layer in an ``nn.ModuleList``.  The
-JAX package stacks the parameters of each slot of the layer period and
-scans over periods; the port runs the same layers in order, and
-``repro_torch.convert.lm_params_from_jax`` unstacks the JAX package's tree
-(``slots/s{i}[p]`` is layer ``p·plen + i``, ``rem/r{j}`` the tail).  The
-JAX package's sharding constraints are the identity without a mesh, so the
-single-card port has none.
+The port of the JAX package's ``models/lm.py``.  :class:`LM` is an
+``nn.Module`` holding its parameters on one device, one block per layer in
+an ``nn.ModuleList``, and Zamba2's one shared attention block under
+``shared_attn``.  The block kinds: ``attn_mlp`` (mistral-nemo-12b,
+mistral-large-123b, nemotron-4-340b, gemma3-27b with local/global
+attention, internvl2-26b with the ``vit_stub`` projector), ``attn_moe``
+(mixtral-8x22b, phi3.5-moe-42b-a6.6b; ``models/moe.py``), ``mamba``
+(zamba2-1.2b, with the shared attention block before every
+``shared_attn_every``-th layer) and ``mlstm``/``slstm`` (xlstm-125m;
+``models/ssm.py``).  The JAX package stacks the parameters of each slot of
+the layer period and scans over periods; the port runs the same layers in
+order, and ``repro_torch.convert.lm_params_from_jax`` unstacks the JAX
+package's tree (``slots/s{i}[p]`` is layer ``p·plen + i``, ``rem/r{j}``
+the tail).  The JAX package's sharding constraints are the identity
+without a mesh, so the single-card port has none.
 
 Paths:
 
 * ``forward_train`` and ``loss_fn`` — the full-sequence forward and the
   causal LM loss (forward only here; training is ported later);
 * ``prefill`` — full-sequence forward that also emits per-layer decode
-  caches;
+  caches (attention K/V, the recurrent blocks' final states);
 * ``decode_step`` — one token over every layer with explicit caches, which
-  it updates in place.
+  it updates in place: the attention caches are written at ``pos``, a
+  recurrent block's state is replaced in its layer's entry.
 
-The other layer kinds (``attn_moe``, ``mamba``, ``mlstm``, ``slstm``) and
-the encoder-decoder raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them; nothing runs in their place.
+Each application of Zamba2's shared block keeps its own KV cache, under
+``"shared"`` in the entry of the layer it precedes.  The encoder-decoder
+(``models/encdec.py``) raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it; nothing runs in its place.
 """
 
 from __future__ import annotations
@@ -37,18 +44,17 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamSpec, cast_specs, initialize
 
-__all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "not_ported"]
+__all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "shared_attn_specs",
+           "not_ported"]
 
 Params = Dict[str, Any]
 
-# the ROADMAP.md §1 item that ports each block kind the slice leaves out
+# the ROADMAP.md §1 item that ports each model kind still left out
 _NOT_PORTED = {
-    "attn_moe": "models/moe.py, ROADMAP.md §1 item 1",
-    "mamba": "models/ssm.py, ROADMAP.md §1 item 1",
-    "mlstm": "models/ssm.py, ROADMAP.md §1 item 1",
-    "slstm": "models/ssm.py, ROADMAP.md §1 item 1",
     "encdec": "models/encdec.py, ROADMAP.md §1 item 1",
 }
 
@@ -111,17 +117,67 @@ def layer_slots(cfg: ArchConfig) -> List[Slot]:
 # ---------------------------------------------------------------------------
 
 def block_specs(cfg: ArchConfig, slot: Slot) -> Dict[str, Any]:
-    if slot.kind != "attn_mlp":
-        raise not_ported(slot.kind, cfg)
-    return {"norm1": L.norm_spec(cfg), "attn": L.attn_specs(cfg),
-            "norm2": L.norm_spec(cfg), "mlp": L.mlp_specs(cfg)}
+    s: Dict[str, Any] = {"norm1": L.norm_spec(cfg)}
+    if slot.kind in ("attn_mlp", "attn_moe"):
+        s["attn"] = L.attn_specs(cfg)
+        s["norm2"] = L.norm_spec(cfg)
+        if slot.kind == "attn_mlp":
+            s["mlp"] = L.mlp_specs(cfg)
+        else:
+            s["moe"] = MOE.moe_specs(cfg)
+    elif slot.kind == "mamba":
+        # Zamba2-style: mamba layers have no per-layer MLP; the d_ff MLP
+        # belongs to the shared attention block.
+        s["mamba"] = SSM.mamba_specs(cfg)
+    elif slot.kind == "mlstm":
+        s["mlstm"] = SSM.mlstm_specs(cfg)
+    elif slot.kind == "slstm":
+        s["slstm"] = SSM.slstm_specs(cfg)
+    else:
+        raise ValueError(slot.kind)
+    return s
 
 
-def block_apply(p, x: torch.Tensor, cfg: ArchConfig, slot: Slot) -> torch.Tensor:
-    """Full-sequence (train) path for one block."""
+def shared_attn_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Zamba2's one shared attention block (and its MLP when d_ff)."""
+    out = {"norm": L.norm_spec(cfg), "attn": L.attn_specs(cfg)}
+    if cfg.d_ff:
+        out["norm2"] = L.norm_spec(cfg)
+        out["mlp"] = L.mlp_specs(cfg)
+    return out
+
+
+def _ffn(p, x: torch.Tensor, cfg: ArchConfig, slot: Slot) -> torch.Tensor:
+    """The feed-forward half of an attention block: MLP or MoE."""
+    h2 = L.apply_norm(p["norm2"], x)
+    if slot.kind == "attn_mlp":
+        return L.mlp_apply(p["mlp"], h2, cfg)
+    return MOE.moe_apply(p["moe"], h2, cfg)
+
+
+def _shared_mlp(shared_p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if not cfg.d_ff:
+        return x
+    return x + L.mlp_apply(shared_p["mlp"], L.apply_norm(shared_p["norm2"], x), cfg)
+
+
+def block_apply(p, x: torch.Tensor, cfg: ArchConfig, slot: Slot,
+                shared_p=None) -> torch.Tensor:
+    """Full-sequence (train) path for one block, after the shared attention
+    block where the slot has one."""
+    if slot.shared_attn and shared_p is not None:
+        x = x + L.attn_apply(shared_p["attn"], L.apply_norm(shared_p["norm"], x), cfg,
+                             causal=True, local=False)
+        x = _shared_mlp(shared_p, x, cfg)
     h = L.apply_norm(p["norm1"], x)
-    x = x + L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local)
-    return x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+    if slot.kind in ("attn_mlp", "attn_moe"):
+        x = x + L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local)
+        return x + _ffn(p, x, cfg, slot)
+    if slot.kind == "mamba":
+        return x + SSM.mamba_apply(p["mamba"], h, cfg)
+    if slot.kind == "mlstm":
+        return x + SSM.mlstm_apply(p["mlstm"], h, cfg)
+    return x + SSM.slstm_apply(p["slstm"], h, cfg)
 
 
 def _module(tree) -> nn.Module:
@@ -160,6 +216,7 @@ class LM(nn.Module):
         self.embed = _module(params["embed"])
         self.final_norm = _module(params["final_norm"])
         self.layers = nn.ModuleList(_module(p) for p in params["layers"])
+        self.shared_attn = _module(params["shared_attn"]) if "shared_attn" in params else None
         if "projector" in params:
             self.projector = _module(params["projector"])
 
@@ -177,6 +234,8 @@ class LM(nn.Module):
             raise not_ported("encdec", cfg)
         out: Params = {"embed": L.embed_specs(cfg), "final_norm": L.norm_spec(cfg),
                        "layers": [block_specs(cfg, slot) for slot in layer_slots(cfg)]}
+        if cfg.shared_attn_every:
+            out["shared_attn"] = shared_attn_specs(cfg)
         if cfg.frontend == "vit_stub":
             out["projector"] = {
                 "w": ParamSpec((cfg.frontend_dim, cfg.d_model),
@@ -197,7 +256,7 @@ class LM(nn.Module):
         cfg = self.cfg
         x = self._embed_inputs(batch)
         for slot, p in zip(self.slots, self.layers):
-            x = block_apply(p, x, cfg, slot)
+            x = block_apply(p, x, cfg, slot, self.shared_attn)
         x = L.apply_norm(self.final_norm, x)
         return L.head_apply(self.embed, x, cfg).float()
 
@@ -215,10 +274,26 @@ class LM(nn.Module):
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype: Optional[torch.dtype] = None
                    ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
-        """Per-layer decode state; attention caches sized full or window."""
+        """Per-layer decode state: attention caches sized full or window (in
+        ``dtype``, the model's by default), recurrent states in float32."""
+        cfg = self.cfg
         dtype = dtype or self.cache_dtype()
-        return [{"attn": self._attn_cache(batch, max_seq, slot.local, dtype)}
-                for slot in self.slots]
+        dev = self.device
+        caches = []
+        for slot in self.slots:
+            entry: Dict[str, Dict[str, torch.Tensor]] = {}
+            if slot.shared_attn and cfg.shared_attn_every:
+                entry["shared"] = self._attn_cache(batch, max_seq, False, dtype)
+            if slot.kind in ("attn_mlp", "attn_moe"):
+                entry["attn"] = self._attn_cache(batch, max_seq, slot.local, dtype)
+            elif slot.kind == "mamba":
+                entry["mamba"] = SSM.mamba_init_state(cfg, batch, device=dev)
+            elif slot.kind == "mlstm":
+                entry["mlstm"] = SSM.mlstm_init_state(cfg, batch, device=dev)
+            elif slot.kind == "slstm":
+                entry["slstm"] = SSM.slstm_init_state(cfg, batch, device=dev)
+            caches.append(entry)
+        return caches
 
     def cache_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.dtype)
@@ -243,26 +318,55 @@ class LM(nn.Module):
         x = L.embed_apply(self.embed, token)
         tables = L.rope_tables(torch.tensor([pos], device=x.device), cfg.head_dim,
                                cfg.rope_theta)
+        shared_p = self.shared_attn
         for slot, p, cache in zip(self.slots, self.layers, caches):
+            if slot.shared_attn and shared_p is not None:
+                y, _ = L.attn_decode(shared_p["attn"], L.apply_norm(shared_p["norm"], x), cfg,
+                                     cache["shared"], pos, local=False, tables=tables)
+                x = _shared_mlp(shared_p, x + y, cfg)
             h = L.apply_norm(p["norm1"], x)
-            y, _ = L.attn_decode(p["attn"], h, cfg, cache["attn"], pos, local=slot.local,
-                                 tables=tables)
-            x = x + y
-            x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+            if slot.kind in ("attn_mlp", "attn_moe"):
+                y, _ = L.attn_decode(p["attn"], h, cfg, cache["attn"], pos, local=slot.local,
+                                     tables=tables)
+                x = x + y
+                x = x + _ffn(p, x, cfg, slot)
+            else:
+                step = {"mamba": SSM.mamba_decode, "mlstm": SSM.mlstm_decode,
+                        "slstm": SSM.slstm_decode}[slot.kind]
+                y, cache[slot.kind] = step(p[slot.kind], h, cfg, cache[slot.kind])
+                x = x + y
         x = L.apply_norm(self.final_norm, x)
         logits = L.head_apply(self.embed, x, cfg).float()
         return logits[:, 0], caches
 
     # -- prefill ---------------------------------------------------------------
+    def _prefill_kv(self, p, h: torch.Tensor, s: int, local: bool,
+                    max_seq: Optional[int]) -> Dict[str, torch.Tensor]:
+        """The (K, V) cache of one attention application over h (B, S, d):
+        full length, padded to ``max_seq``, or, for a local layer past its
+        window, the last ``window`` keys in rotating layout."""
+        cfg = self.cfg
+        k, v = L.attn_prefill_kv(p, h, cfg)
+        if local and cfg.sliding_window < s:
+            w = cfg.sliding_window
+            # rotating layout: last w keys at slots (pos % w)
+            k = torch.roll(k[:, -w:], s % w, dims=1)
+            v = torch.roll(v[:, -w:], s % w, dims=1)
+        elif max_seq is not None and max_seq > s:
+            pad = (0, 0, 0, 0, 0, max_seq - s)
+            k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        return {"k": k.to(self.cache_dtype()).contiguous(),
+                "v": v.to(self.cache_dtype()).contiguous()}
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, image_embeds: Optional[torch.Tensor] = None,
                 max_seq: Optional[int] = None) -> Tuple[torch.Tensor, List]:
         """Full forward emitting final-position logits + per-layer caches.
 
         Attention caches are written full-length (local layers keep the last
-        ``window`` keys in rotating layout).  ``max_seq``: allocate global
-        caches at this length (> S) so decode can continue appending;
-        default = exactly S.
+        ``window`` keys in rotating layout); recurrent layers return their
+        final states.  ``max_seq``: allocate global caches at this length
+        (> S) so decode can continue appending; default = exactly S.
         """
         cfg = self.cfg
         batch = {"tokens": tokens}
@@ -270,22 +374,26 @@ class LM(nn.Module):
             batch["image_embeds"] = image_embeds
         x = self._embed_inputs(batch)
         s = x.shape[1]
+        shared_p = self.shared_attn
         caches: List[Any] = []
         for slot, p in zip(self.slots, self.layers):
+            entry: Dict[str, Any] = {}
+            if slot.shared_attn and shared_p is not None:
+                h = L.apply_norm(shared_p["norm"], x)
+                x = x + L.attn_apply(shared_p["attn"], h, cfg, causal=True, local=False)
+                entry["shared"] = self._prefill_kv(shared_p["attn"], h, s, False, max_seq)
+                x = _shared_mlp(shared_p, x, cfg)
             h = L.apply_norm(p["norm1"], x)
-            x = x + L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local)
-            k, v = L.attn_prefill_kv(p["attn"], h, cfg)
-            if slot.local and cfg.sliding_window < s:
-                w = cfg.sliding_window
-                # rotating layout: last w keys at slots (pos % w)
-                k = torch.roll(k[:, -w:], s % w, dims=1)
-                v = torch.roll(v[:, -w:], s % w, dims=1)
-            elif max_seq is not None and max_seq > s:
-                pad = (0, 0, 0, 0, 0, max_seq - s)
-                k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
-            caches.append({"attn": {"k": k.to(self.cache_dtype()).contiguous(),
-                                    "v": v.to(self.cache_dtype()).contiguous()}})
-            x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+            if slot.kind in ("attn_mlp", "attn_moe"):
+                x = x + L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local)
+                entry["attn"] = self._prefill_kv(p["attn"], h, s, slot.local, max_seq)
+                x = x + _ffn(p, x, cfg, slot)
+            else:
+                apply = {"mamba": SSM.mamba_apply, "mlstm": SSM.mlstm_apply,
+                         "slstm": SSM.slstm_apply}[slot.kind]
+                y, entry[slot.kind] = apply(p[slot.kind], h, cfg, return_state=True)
+                x = x + y
+            caches.append(entry)
         x = L.apply_norm(self.final_norm, x)
         logits = L.head_apply(self.embed, x[:, -1:], cfg)
         return logits[:, 0].float(), caches

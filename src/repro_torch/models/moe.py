@@ -1,0 +1,133 @@
+"""Top-k Mixture-of-Experts block (Mixtral / Phi-3.5 style), on PyTorch.
+
+The port of the JAX package's ``models/moe.py``, with its GShard
+semantics: float32 router logits; softmax, then top-k, then the gates
+renormalised; a capacity of ``max(ceil(T·k/E·moe_capacity_factor), 4)``
+slots per expert; a (token, slot) pair's place in its expert's buffer is
+the count of earlier pairs routed there in the token-major ``(T·k, E)``
+order (slot 1 of token 0 precedes slot 0 of token 1); pairs at or past
+capacity are dropped; a sequence longer than ``MOE_SEGMENT`` is routed in
+segments of the largest divisor of S that is at most ``MOE_SEGMENT``, each
+with its own capacity.
+
+The JAX package dispatches and combines with one-hot einsums.  The port
+does the same work by index: each kept pair's token row is copied into its
+``(E, C, d)`` buffer slot, the experts run as batched matmuls over all E
+(as in the JAX package: every expert's weights are read), and each pair's
+gated expert output is added back to its token with ``index_add_``.  A
+dropped pair writes to, and reads from, one spare row past the buffers, so
+nothing on the path syncs with the host (no ``.item()``, no
+``.nonzero()``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.params import ParamSpec
+
+__all__ = ["MOE_SEGMENT", "moe_specs", "moe_apply", "route", "capacity", "load_balancing_loss"]
+
+Params = Mapping[str, torch.Tensor]
+
+MOE_SEGMENT = 512   # max sequence positions routed per dispatch group
+
+
+def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    specs = {
+        "router": ParamSpec((d, e), ("embed", "unsharded"), torch.float32,
+                            init="scaled_normal"),
+    }
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        specs.update({
+            "wg": ParamSpec((e, d, f), ("expert", "embed", "mlp"), init="scaled_normal"),
+            "wu": ParamSpec((e, d, f), ("expert", "embed", "mlp"), init="scaled_normal"),
+            "wd": ParamSpec((e, f, d), ("expert", "mlp", "embed"), init="scaled_normal"),
+        })
+    else:
+        specs.update({
+            "wi": ParamSpec((e, d, f), ("expert", "embed", "mlp"), init="scaled_normal"),
+            "wd": ParamSpec((e, f, d), ("expert", "mlp", "embed"), init="scaled_normal"),
+        })
+    return specs
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), top-k routed experts with capacity, in
+    segments of at most ``MOE_SEGMENT`` positions."""
+    b, s, d = x.shape
+    if s <= MOE_SEGMENT:
+        return _moe_dispatch(p, x, cfg)
+    seg = MOE_SEGMENT
+    while s % seg:
+        seg -= 1
+    return torch.cat([_moe_dispatch(p, x[:, i:i + seg], cfg) for i in range(0, s, seg)], dim=1)
+
+
+def route(p: Params, xf: torch.Tensor, cfg: ArchConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router on tokens xf (T, d): (gates (T, E) float32, the top-k
+    gates renormalised (T, k), their experts (T, k)), each token's experts
+    in descending gate order."""
+    gates = torch.softmax(xf.float() @ p["router"], dim=-1)
+    topk_g, topk_i = torch.topk(gates, cfg.experts_per_token, dim=-1)
+    topk_g = topk_g / torch.clamp_min(topk_g.sum(-1, keepdim=True), 1e-9)
+    return gates, topk_g, topk_i
+
+
+def capacity(tokens: int, cfg: ArchConfig) -> int:
+    """Slots per expert for a dispatch group of ``tokens`` tokens."""
+    k, e = cfg.experts_per_token, cfg.num_experts
+    return max(math.ceil(tokens * k / e * cfg.moe_capacity_factor), 4)
+
+
+def _moe_dispatch(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tokens = b * s
+    xf = x.reshape(tokens, d)
+    _, topk_g, topk_i = route(p, xf, cfg)
+    cap = capacity(tokens, cfg)
+
+    # position of each (token, slot) within its expert's capacity buffer:
+    # the pairs routed to the same expert before it, token-major
+    expert = topk_i.reshape(-1)                                   # (T*k,)
+    onehot = F.one_hot(expert, e)                                 # (T*k, E)
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, expert[:, None])[:, 0]
+    keep = pos < cap
+    spare = e * cap                                               # the dropped pairs' row
+    slot = torch.where(keep, expert * cap + pos, torch.full_like(pos, spare))
+    token = torch.arange(tokens, device=x.device).repeat_interleave(k)
+
+    buf = x.new_zeros(spare + 1, d)
+    buf.index_copy_(0, slot, xf[token])             # a kept pair fills its slot alone
+    expert_in = buf[:spare].view(e, cap, d)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        gate = torch.bmm(expert_in, p["wg"])
+        gate = F.silu(gate) if cfg.mlp_type == "swiglu" else F.gelu(gate, approximate="tanh")
+        h = gate * torch.bmm(expert_in, p["wu"])
+    else:
+        h = F.gelu(torch.bmm(expert_in, p["wi"]), approximate="tanh")
+    expert_out = torch.cat([torch.bmm(h, p["wd"]).view(spare, d), x.new_zeros(1, d)])
+
+    # combine: each pair's gated output onto its token, in float32
+    g = torch.where(keep, topk_g.reshape(-1).to(x.dtype), torch.zeros((), dtype=x.dtype,
+                                                                      device=x.device))
+    out = torch.zeros(tokens, d, dtype=torch.float32, device=x.device)
+    out.index_add_(0, token, expert_out[slot].float() * g.float()[:, None])
+    return out.to(x.dtype).view(b, s, d)
+
+
+def load_balancing_loss(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Switch-style aux loss: E · Σ_e f_e · P_e (mean gate × token fraction)."""
+    d = x.shape[-1]
+    gates = torch.softmax(x.reshape(-1, d).float() @ p["router"], dim=-1)
+    top1 = torch.argmax(gates, dim=-1)
+    frac = F.one_hot(top1, cfg.num_experts).float().mean(0)
+    return cfg.num_experts * torch.sum(frac * gates.mean(0))

@@ -7,13 +7,23 @@
 * ``serve`` on the JAX package's parameters (carried across by
   ``lm_params_from_jax``) returns the JAX package's token ids;
 * ``python -m repro_torch.launch.serve --reduced --coded-head --device cpu``
-  exits 0.
+  exits 0 for mistral-nemo-12b and for the three archs of ``chip_smoke.py``
+  phase 8 (phi3.5-moe, zamba2, xlstm);
+* ``chip_smoke.py``'s phase 8 runs end to end on their reduced configs on
+  the CPU, with the CUDA events, synchronisation and memory calls stubbed
+  and its launch-count checks (which count the card's kernels) made no-ops;
+  its decode-step bound on full configs (``meta``), and its refusal to serve
+  phi3.5-moe at fewer layers than it states.
 
 The ``cuda`` twins hold the head's three launches (``mds_encode`` once,
 then one ``coded_matvec`` per column group and one ``mds_decode`` a call)
 against their plain versions and count them.  The JAX reference runs on
 the CPU (``jax_on_cpu``).
 """
+
+import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -127,9 +137,13 @@ def test_serve_refuses_a_model_on_another_device(nemo):
               _requests(Request, 512), ServeConfig(), device="cpu")
 
 
-def test_launch_serve_main_on_the_cpu(capsys):
-    assert main(["--reduced", "--coded-head", "--device", "cpu", "--requests", "3",
-                 "--max-new", "4"]) == 0
+SERVED = ["mistral-nemo-12b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-125m"]
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_launch_serve_main_on_the_cpu(capsys, arch):
+    assert main(["--arch", arch, "--reduced", "--coded-head", "--device", "cpu", "--requests",
+                 "3", "--max-new", "4"]) == 0
     out = capsys.readouterr().out
     assert "coded lm_head rel_err=" in out and "3 requests, 12 tokens" in out
     err = float(out.split("rel_err=")[1].split()[0])
@@ -190,11 +204,103 @@ def test_cuda_serve_matches_jax_token_ids(cuda, nemo):
 
 
 @pytest.mark.cuda
-def test_cuda_launch_serve_main(cuda, capsys):
+@pytest.mark.parametrize("arch", SERVED)
+def test_cuda_launch_serve_main(cuda, capsys, arch):
     ops.reset_launch_counts()
-    assert main(["--reduced", "--coded-head", "--requests", "3", "--max-new", "4"]) == 0
+    assert main(["--arch", arch, "--reduced", "--coded-head", "--requests", "3",
+                 "--max-new", "4"]) == 0
     assert ops.launch_counts() == {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1,
                                    "lstm_cell": 0}
     assert ops.design_counts()["coded_matvec"] == {"stream": 0, "split": 0, "multi": 1,
                                                    "general": 0}
     assert "3 requests, 12 tokens" in capsys.readouterr().out
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event`` on the CPU: every span 1 ms."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def query(self):
+        return True
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _compare(name, got, want, tol):
+    """chip_smoke's kernel-against-plain check, on the CPU."""
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol, atol=tol, err_msg=name)
+    return float((got - want).abs().max())
+
+
+def test_chip_smoke_phase_eight_on_the_cpu(monkeypatch, capsys):
+    smoke = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *args: 0)
+    monkeypatch.setattr(smoke, "device_kernel_ms", lambda fn, steps: None)
+    monkeypatch.setattr(smoke, "expect", lambda *args: None)
+    monkeypatch.setattr(cmv, "coded_matvec_multi", cmv.coded_matvec_plain)
+    launches, records = smoke.families_phase(torch.device("cpu"), _compare, reduced=True)
+    assert launches == dict.fromkeys(launches, 0)      # the CPU launches no kernel
+    assert list(records) == ["phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-125m"]
+    for rec in records.values():
+        assert rec["tokens"] == 48 and rec["steps"] == 32
+        assert rec["coded_head_err"] <= smoke.REL_ERR_LIMIT
+        assert rec["f32_handoff_rel_err"] <= smoke.F32_HANDOFF_REL
+        assert rec["head_hold_err"] <= smoke.REL_ERR_LIMIT
+        assert set(rec["head_kernel_vs_plain"]) == {"mds_encode", "coded_matvec", "mds_decode"}
+        assert 0 < rec["step_bound_ms"] < rec["long_step_bound_ms"] or rec["arch"] == "xlstm-125m"
+    phi = records["phi3.5-moe-42b-a6.6b"]
+    assert 0 < phi["routed_share"] <= 1 and phi["routed_bound_ms"] <= phi["step_bound_ms"]
+    assert phi["moe_bf16_rel_err"] <= smoke.BF16_REL
+    for arch in ("zamba2-1.2b", "xlstm-125m"):
+        assert "head_apply" in records[arch]["bf16_block_rel_err"]
+    out = capsys.readouterr().out
+    assert out.count("6 requests, 48 tokens") == 3 and "phase 8 xlstm-125m (c)" in out
+    assert out.count("(e): coded lm_head (6, 4)") == 3
+
+
+def test_chip_smoke_decode_step_bound():
+    """One decode step's bound on full configs (``meta``): mistral-nemo-12b
+    reads its 23.2 GB of weights but the embedding (float32 norms at 4
+    bytes), bytes-bound near 6.9 ms on the H100's 3.35 TB/s, and its KV
+    cache grows it; phi3.5-moe's routed share of the experts shrinks it."""
+    smoke = _chip_smoke()
+    nemo = build_model(get_config("mistral-nemo-12b"), device="meta")
+    ms, by = smoke.decode_step_bound(nemo, 4, 8)
+    assert by == "bytes" and 6.8 < ms < 7.0
+    assert smoke.decode_step_bound(nemo, 4, 2056)[0] > ms + 0.1
+    phi = build_model(dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), num_layers=4),
+                      device="meta")
+    every, half = smoke.decode_step_bound(phi, 4, 8), smoke.decode_step_bound(phi, 4, 8, 0.5)
+    assert half[0] < every[0] and every[1] == "bytes"
+
+
+def test_chip_smoke_refuses_a_phi_that_does_not_fit(monkeypatch):
+    """Phase 8 serves phi3.5-moe at MOE_LAYERS layers or fails: it never
+    shrinks the model to the memory that is free."""
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(get_config(smoke.MOE_ARCH), num_layers=smoke.MOE_LAYERS)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (84 * 10**9, 85 * 10**9))
+    smoke.check_fits(cfg, "cuda")
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev: (81 * 10**9, 85 * 10**9))
+    with pytest.raises(RuntimeError, match="leaving less than 8 GiB"):
+        smoke.check_fits(cfg, "cuda")
