@@ -177,14 +177,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        in both, any token routed
        otherwise printed with its float32 gates and failing the run unless
        they lie within twice the router's own bfloat16 error.
+9. the encoder-decoder, seamless-m4t-large-v2 whole (24 encoder and 24
+   decoder layers, d_model 1,024, vocab 256,206 padded to 256,256, 1.63 B
+   parameters, 3.27 GB in bfloat16, random from seed 0), driven through
+   ``EncDecLM``'s own ``prefill`` and ``decode_step``: ``launch.serve.main``
+   must refuse the arch with ``SystemExit``, as the JAX package's does;
+   (a) smoke traffic, B = 4 sequences of 16 frames and 8 prompt tokens,
+       then 8 greedy steps, and (b) a real context, 4 × (2,048 frames +
+       2,048 tokens), then 16 steps: the prefill with its encoder and
+       decoder timed apart between CUDA events, each step between CUDA
+       events beside its bound (the decoder's weights, the head, the self
+       K/V and every layer's cross K/V), five steps under the profiler;
+       then each encoder block on (b)'s frames in bfloat16 against float32
+       of the same weights on the same input, within 2e-2;
+   (c) on a float32 copy of the same weights, prefill(16 frames, 12 tokens)
+       then one decode step against prefill(16 frames, 13 tokens), within
+       2e-3 of the largest logit;
+   (d) bfloat16 against that float32 copy, 16 decode steps at B = 4 after
+       a prefill: every decoder block (self-attention, cross-attention,
+       MLP) and ``head_apply`` run again in float32 on the bfloat16 run's
+       input and cache, within 2e-2, the first step's logits within 0.25;
+   (e) the coded head at d = 1,024 × V = 256,256 (``hold_coded_head``:
+       exactly one launch of each kernel, each held against its plain
+       version), then the multi design (nb = 32 blocks of 8,008 rows) in
+       turns against ``x @ head`` and the plain version, beside its bound.
 
-The last lines are phase 8's records, phase 7's and phase 6's as JSON, the
+The last lines are phase 9's, 8's, 7's and 6's records as JSON, the
 in-turn times as JSON, the per-kernel record as JSON (``ms``, ``plain_ms``
 and ``library_ms`` are device times; ``*call_ms`` the per-call times;
 ``launches`` the main path's, ``cluster_launches`` the cluster phase's,
 ``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
-point's, ``families_launches`` phase 8's three entry points') and the
-device line.
+point's, ``families_launches`` phase 8's three entry points',
+``encdec_launches`` phase 9's coded head's) and the device line.
 The record of ``coded_matvec``'s multi design that the cluster's
 ``matmul`` rounds launch is at a chunk's shape at B = 8, and its
 ``launches`` are the cluster phase's; the
@@ -268,6 +292,20 @@ BF16_REL = 2e-2
 BF16_MLSTM_REL = 0.1
 BF16_LOGITS_REL = 0.25
 HANDOFF_TOKENS = 12
+# phase 9, the encoder-decoder: seamless-m4t-large-v2 whole (24 encoder and
+# 24 decoder layers, d_model 1,024, vocab 256,206 padded to 256,256) in
+# bfloat16 from seed 0, through EncDecLM's prefill and decode_step; smoke
+# traffic of B = 4 x (16 frames + 8 prompt tokens) and 8 greedy steps, then
+# a real context of 2,048 frames + 2,048 tokens (half each of a 4,096
+# budget, as the JAX package's enc_len_for splits it) and LONG_STEPS steps;
+# its encoder and decoder blocks held at BF16_REL, its first step's logits
+# at BF16_LOGITS_REL.  Measured on one H100 (NVIDIA H100 80GB HBM3, 700 W):
+# an encoder block at most 5.3e-3 (attention) and 4.6e-3 (MLP), a decoder
+# block 5.2e-3, cross-attention 4.2e-3, head_apply 3.3e-3, the first step's
+# logits 1.3e-2: the limits hold with a margin of about 4x and 19x
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_SMOKE = (16, 8, 8)       # frames, prompt tokens, decode steps at B = 4
+ENCDEC_CONTEXT = 2_048          # frames and prompt tokens of (b)
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -1195,32 +1233,38 @@ def workloads_phase(dev, call_ms, compare, in_turns) -> tuple:
 
 # -- 7. serving a dense LM at full width ------------------------------------
 
-def decode_step_bound(model, b: int, pos: int, expert_share: float = 1.0) -> tuple:
+def decode_step_bound(model, b: int, pos: int, expert_share: float = 1.0,
+                      enc_len: int = 0) -> tuple:
     """The least time one decode step of ``b`` tokens at position ``pos``
-    takes on ``model``: every weight but the embedding table read once (b
-    of its rows; of the experts' weights, ``expert_share``), every
-    attention application's valid K/V read and one position written, each
-    recurrent state read and written, the logits written; against the
-    bfloat16 peak for 2 operations a weight a token (k of E experts a
-    token).  Returns (ms, "bytes" or "operations")."""
+    takes on ``model``: every weight of the decoder read once (b rows of
+    the embedding table; of the experts' weights, ``expert_share``; an
+    encoder-decoder's encoder and ``frontend_proj`` not at all), every
+    self-attention application's valid K/V read and one position written,
+    an encoder-decoder's cross K/V of ``enc_len`` positions read in every
+    layer, each recurrent state read and written, the logits written;
+    against the bfloat16 peak for 2 operations a weight a token (k of E
+    experts a token).  Returns (ms, "bytes" or "operations")."""
     cfg = model.cfg
     item = model.cache_dtype().itemsize
     n_bytes = b * cfg.d_model * item + b * cfg.padded_vocab * 4
     ops_params = 0.0
     for name, p in model.named_parameters():
-        if name == "embed.embedding":
+        if name == "embed.embedding" or name.split(".")[0] in ("frontend_proj", "enc",
+                                                                "enc_norm"):
             continue
         expert = ".moe.w" in name
         n_bytes += p.numel() * p.dtype.itemsize * (expert_share if expert else 1.0)
         ops_params += p.numel() * (cfg.experts_per_token / cfg.num_experts if expert else 1.0)
-    caches = model.init_cache(b, 1)
-    attn = sum(1 for entry in caches for kind in entry if kind in ("attn", "shared"))
-    kv = attn * 2 * b * cfg.kv_dim * item
+    caches = model.init_cache(b, 1, 1) if cfg.is_encdec else model.init_cache(b, 1)
+    attn_kinds = ("attn", "shared", "self")
+    attn = sum(1 for entry in caches for kind in entry if kind in attn_kinds)
+    cross = sum(1 for entry in caches if "cross" in entry)
+    kv = 2 * b * cfg.kv_dim * item
     states = sum(t.numel() * t.element_size() for entry in caches
-                 for kind, state in entry.items() if kind not in ("attn", "shared")
+                 for kind, state in entry.items() if kind not in attn_kinds + ("cross",)
                  for t in state.values())
-    n_bytes += kv * (pos + 1) + kv + 2 * states
-    flops = 2 * b * ops_params + 4 * attn * b * cfg.q_dim * (pos + 1)
+    n_bytes += attn * kv * (pos + 2) + cross * kv * enc_len + 2 * states
+    flops = 2 * b * ops_params + 4 * b * cfg.q_dim * (attn * (pos + 1) + cross * enc_len)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1704,14 +1748,16 @@ class RoutedExperts:
 
 class BlockErrors:
     """While entered, each attention, MLP and recurrent block and the logits
-    projection that a decode step runs is run again in float32 on float32
-    copies of its weights, input and cache or state, and its output's error
-    over the float32 output's largest entry is recorded by function name."""
+    projection that a decode step runs (or each of the functions ``names``)
+    is run again in float32 on float32 copies of its weights, input and
+    cache or state, and its output's error over the float32 output's
+    largest entry is recorded by function name."""
 
-    NAMES = ("attn_decode", "mlp_apply", "mamba_decode", "mlstm_decode", "slstm_decode",
-             "head_apply")
+    NAMES = ("attn_decode", "cross_attn_decode", "mlp_apply", "mamba_decode", "mlstm_decode",
+             "slstm_decode", "head_apply")
 
-    def __init__(self):
+    def __init__(self, names: tuple = NAMES):
+        self.names = names
         self.errors = {}
 
     def __enter__(self):
@@ -1726,7 +1772,7 @@ class BlockErrors:
             return {k: up(t) for k, t in v.items()} if hasattr(v, "items") else v
 
         self._saved = []
-        for name in self.NAMES:
+        for name in self.names:
             module = L if hasattr(L, name) else SSM
             run = getattr(module, name)
 
@@ -2070,6 +2116,259 @@ def families_phase(dev, compare, reduced: bool = False) -> tuple:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     return launches, records
+
+
+# -- 9. serving the encoder-decoder ------------------------------------------
+
+def encdec_decode(model, frames, tokens, steps: int, label: str) -> dict:
+    """``EncDecLM.prefill(frames, tokens)`` with the encoder and the decoder
+    timed apart between CUDA events, then ``steps`` greedy decode steps,
+    each between CUDA events, then PROFILED_STEPS under the profiler; fails
+    where the logits are not finite or a token leaves the vocabulary.
+    Returns the times, the generated tokens and the caches."""
+    import torch
+
+    cfg = model.cfg
+    s = tokens.shape[1]
+    encode, marks = model.encode, {}
+
+    def clocked_encode(frames_):
+        out = encode(frames_)
+        marks["encoded"] = torch.cuda.Event(enable_timing=True)
+        marks["encoded"].record()
+        return out
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    model.encode = clocked_encode
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        logits, caches = model.prefill(frames, tokens, max_seq=s + steps + PROFILED_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    finally:
+        del model.encode
+    cur = torch.argmax(logits, -1)[:, None]
+    generated, step_ms = [cur], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        logits, caches = model.decode_step(cur, caches, s + i)
+        e1.record()
+        step_ms.append((e0, e1))
+        cur = torch.argmax(logits, -1)[:, None]
+        generated.append(cur)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    out = torch.cat(generated, 1)
+    if not (torch.isfinite(logits).all() and 0 <= int(out.min())
+            and int(out.max()) < cfg.padded_vocab):
+        raise RuntimeError(f"{label}: after a prefill of {tuple(frames.shape[:2])} frames and "
+                           f"{s} tokens, {steps} decode steps gave logits that are not finite "
+                           "or tokens outside the vocabulary")
+    pos = iter(range(s + steps, s + steps + PROFILED_STEPS))
+    busy = device_kernel_ms(lambda: model.decode_step(cur, caches, next(pos)), PROFILED_STEPS)
+    return dict(prefill_s=prefill_s, encoder_ms=start.elapsed_time(marks["encoded"]),
+                decoder_ms=marks["encoded"].elapsed_time(end),
+                step_ms=[e0.elapsed_time(e1) for e0, e1 in step_ms], decode_s=decode_s,
+                busy=busy, tokens=out, caches=caches)
+
+
+def encdec_traffic(model, dev, b: int, n_frames: int, n_tokens: int, steps: int, label: str,
+                   seed: int) -> tuple:
+    """``encdec_decode`` on ``b`` random sequences of ``n_frames`` frames and
+    ``n_tokens`` prompt tokens drawn from ``seed``, with the step's bound
+    beside it.  Returns (the record's entries, the frames)."""
+    import numpy as np
+    import torch
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    frames = torch.as_tensor(rng.standard_normal((b, n_frames, cfg.frontend_dim)),
+                             dtype=torch.float32, device=dev)
+    tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, n_tokens)), device=dev)
+    run = encdec_decode(model, frames, tokens, steps, label)
+    med = statistics.median(run["step_ms"])
+    bound, by = decode_step_bound(model, b, n_tokens + steps // 2, enc_len=n_frames)
+    rec = dict(batch=b, frames=n_frames, prompt=n_tokens, steps=steps,
+               prefill_s=run["prefill_s"], encoder_ms=run["encoder_ms"],
+               decoder_prefill_ms=run["decoder_ms"], step_ms=run["step_ms"],
+               step_ms_median=med, step_bound_ms=bound, step_bound_by=by,
+               tokens_per_s=b * steps / run["decode_s"])
+    line = (f"{label}: B = {b}, {n_frames} frames and {n_tokens} prompt tokens: prefill "
+            f"{run['prefill_s'] * 1e3:.1f} ms on the host's clock (between CUDA events: encoder "
+            f"{run['encoder_ms']:.3f} ms, decoder {run['decoder_ms']:.3f} ms); {steps} greedy "
+            f"decode steps, {rec['tokens_per_s']:.1f} tokens/s, a step between CUDA events "
+            f"median {med:.3f} ms (min {min(run['step_ms']):.3f}, max "
+            f"{max(run['step_ms']):.3f}) against a bound of {bound:.3f} ms ({by}: the decoder's "
+            f"weights, the head, the self K/V and {n_frames} positions of cross K/V a layer)")
+    if run["busy"] is not None:
+        busy_ms, _, n_kernels, top = run["busy"]
+        rec.update(step_device_busy_ms=busy_ms, step_kernel_launches=n_kernels,
+                   step_idle_share=1 - busy_ms / med, step_top_kernels=top)
+        line += (f"; under the profiler {n_kernels:.0f} launches and {busy_ms:.3f} ms of kernels "
+                 f"a step, idle {1 - busy_ms / med:.1%} of the median; by kernel: " + "; ".join(
+                     f"{name} {n} {ms:.3f}" for name, n, ms in top))
+    print(line, flush=True)
+    return rec, frames
+
+
+def encdec_phase(dev, compare, in_turns, reduced: bool = False) -> tuple:
+    """Phase 9: seamless-m4t-large-v2 whole on the card, driven through
+    ``EncDecLM``'s own prefill and decode (``launch.serve`` refuses the
+    arch, as the JAX package's does); ``compare`` holds a kernel's output
+    against its plain version, ``in_turns`` times versions in turns,
+    ``reduced`` runs the reduced config, as the CPU test does.  Returns the
+    coded head's launches by record name, and the phase's record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import coded_matvec as cmv
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model
+    from repro_torch.models.params import param_count, tree_bytes
+
+    label = "phase 9"
+    try:
+        launch_serve.main(["--arch", ENCDEC_ARCH])
+    except SystemExit as refusal:
+        rec = {"serve_refusal": str(refusal)}
+    else:
+        raise RuntimeError(f"{label}: launch.serve.main served {ENCDEC_ARCH}")
+    cfg = get_config(ENCDEC_ARCH)
+    if reduced:
+        cfg = cfg.reduced()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    specs = model.specs()
+    rec.update(arch=cfg.name, enc_layers=cfg.enc_layers, layers=cfg.num_layers,
+               d_model=cfg.d_model, params=param_count(specs), gb=tree_bytes(specs) / 1e9,
+               build_s=time.perf_counter() - t0,
+               build_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               head=f"d = {cfg.d_model} x V = {cfg.padded_vocab}")
+    print(f"{label}: {cfg.name}, {cfg.enc_layers} encoder and {cfg.num_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {rec['params']:,} parameters, {rec['gb']:.3f} GB "
+          f"({cfg.dtype}, norms float32), built on the card from seed 0 in "
+          f"{rec['build_s']:.2f} s; launch.serve.main refuses the arch: {rec['serve_refusal']!r}",
+          flush=True)
+
+    # (a) smoke traffic and (b) a real context, each step beside its bound;
+    # then each encoder block of (b)'s frames in bfloat16 against float32
+    frames_n, prompt, steps = ENCDEC_SMOKE
+    rec["smoke"], _ = encdec_traffic(model, dev, 4, frames_n, prompt, steps, f"{label} (a)", 0)
+    context = ENCDEC_CONTEXT if not reduced else 256
+    rec["long"], frames = encdec_traffic(model, dev, LONG_BATCH, context, context, LONG_STEPS,
+                                         f"{label} (b)", 4)
+    rec["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with BlockErrors(("attn_apply", "mlp_apply")) as enc_blocks, torch.no_grad():
+        model.encode(frames)
+    enc_worst = {name: max(e) for name, e in enc_blocks.errors.items()}
+    rec["bf16_encoder_block_rel_err"] = enc_worst
+    print(f"{label} (b): each of the {cfg.enc_layers} encoder blocks on {tuple(frames.shape[:2])} "
+          "frames in bfloat16 against float32 of the same weights on the same input, the worst: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in enc_worst.items())
+          + f" (limit {BF16_REL})", flush=True)
+    del frames
+    torch.cuda.empty_cache()
+    if not all(e <= BF16_REL for e in enc_worst.values()):
+        raise RuntimeError(f"{label}: an encoder block in bfloat16 against float32, "
+                           f"{enc_worst} over {BF16_REL}")
+
+    # (c) the float32 handoff and (d) bfloat16 against float32 of the same
+    # weights, on a float32 copy of the model
+    head = model.embed["head"].detach().float()
+    torch.cuda.reset_peak_memory_stats()
+    f32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        for dst, src in zip(f32.parameters(), model.parameters()):
+            dst.copy_(src)
+    rng = np.random.default_rng(3)
+    n = HANDOFF_TOKENS
+    frames = torch.as_tensor(rng.standard_normal((1, frames_n, cfg.frontend_dim)),
+                             dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n + 1)), device=dev)
+    _, caches = f32.prefill(frames, toks[:, :n], max_seq=n + 1)
+    lg_a, _ = f32.decode_step(toks[:, n:], caches, n)
+    lg_b, _ = f32.prefill(frames, toks)
+    handoff = rel_err(lg_a, lg_b.double())
+    same = bool(torch.equal(lg_a.argmax(-1), lg_b.argmax(-1)))
+    del caches
+    if not (torch.isfinite(lg_a).all() and handoff <= F32_HANDOFF_REL):
+        raise RuntimeError(f"{label}: float32 prefill handoff error {handoff:.3e} > "
+                           f"{F32_HANDOFF_REL}")
+    frames = torch.as_tensor(rng.standard_normal((4, frames_n, cfg.frontend_dim)),
+                             dtype=torch.float32, device=dev)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (4, prompt + 16)), device=dev)
+    _, c16 = model.prefill(frames, toks[:, :prompt], max_seq=prompt + 16)
+    _, c32 = f32.prefill(frames, toks[:, :prompt], max_seq=prompt + 16)
+    errs, agree, blocks = [], 0, BlockErrors()
+    for t in range(prompt, prompt + 16):
+        with blocks:
+            lg16, c16 = model.decode_step(toks[:, t:t + 1], c16, t)
+        lg32, c32 = f32.decode_step(toks[:, t:t + 1], c32, t)
+        errs.append(rel_err(lg16, lg32.double()))
+        agree += int((lg16.argmax(-1) == lg32.argmax(-1)).sum())
+    worst = {name: max(e) for name, e in blocks.errors.items()}
+    rec.update(f32_handoff_rel_err=handoff, f32_handoff_argmax_equal=same,
+               bf16_block_rel_err=worst, bf16_step_rel_errs=errs, bf16_argmax_agree=agree / 64,
+               f32_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{label} (c): float32, the whole model: prefill({frames_n} frames, {n} tokens) then "
+          f"a decode step against prefill({frames_n} frames, {n + 1} tokens), error "
+          f"{handoff:.3e} of the largest logit (limit {F32_HANDOFF_REL}), argmax equal: {same}; "
+          f"(d) bfloat16 against float32 of the same weights, each decoder block on the "
+          f"bfloat16 run's input, 16 decode steps at B = 4 after a prefill of {frames_n} frames "
+          f"and {prompt} tokens, the worst by block "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} (limit {BF16_REL}); the "
+          f"logits after the first step {errs[0]:.3e} (limit {BF16_LOGITS_REL}), then by step "
+          f"{', '.join(f'{e:.2e}' for e in errs[1:])}, argmax equal at {agree} of 64; card peak "
+          f"{rec['f32_peak_gb']:.1f} GB", flush=True)
+    del model, f32, c16, c32
+    torch.cuda.empty_cache()
+    over = {name: e for name, e in worst.items() if not e <= BF16_REL}
+    if over:
+        raise RuntimeError(f"{label}: bfloat16 against float32 of the same block, {over} over "
+                           f"{BF16_REL}")
+    if not errs[0] <= BF16_LOGITS_REL:
+        raise RuntimeError(f"{label}: bfloat16 against float32, the logits of the first decode "
+                           f"step: {errs[0]:.3e} > {BF16_LOGITS_REL}")
+
+    # (e) the coded lm_head at the 256k vocabulary, each launch against its
+    # plain version, then the multi design in turns against x @ head
+    hold = hold_coded_head(f"{label} (e)", head, dev, compare)
+    view, xt, ids, rpc, nb, x = (hold[k] for k in ("view", "xt", "ids", "rpc", "nb", "x"))
+    d = head.shape[0]
+    versions = {"multi": lambda: cmv.coded_matvec_multi(view, xt, ids, rpc),
+                "x @ head (dense)": lambda: x @ head,
+                "plain": lambda: cmv.coded_matvec_plain(view, xt, ids, rpc)}
+    names = list(versions)
+    times = in_turns(f"coded_matvec multi, {cfg.name} lm_head", versions, names + names[::-1])
+    best = {name: min(t["device_ms"]) for name, t in times.items()}
+    b_ms, b_by = bound_ms(4 * (nb * rpc * d + d * 2 + nb + nb * rpc * 2), 2 * nb * rpc * d * 2)
+    rec.update(head_hold_err=hold["head_err"], head_kernel_vs_plain=hold["errs"],
+               head_launches=hold["counts"], head_multi_ms=best["multi"],
+               head_dense_ms=best["x @ head (dense)"], head_plain_ms=best["plain"],
+               head_bound_ms=b_ms, head_bound_by=b_by,
+               head_shape=f"nb = {nb} blocks of {rpc} rows, d = {d}, float32, B = 2")
+    print(f"{label} (e): coded_matvec multi at the lm_head, {rec['head_shape']}: best of two "
+          f"{best['multi']:.4f} ms against a bound of {b_ms:.4f} ({b_by}, "
+          f"{b_ms / best['multi']:.1%}); x @ head {best['x @ head (dense)']:.4f}, plain "
+          f"{best['plain']:.4f}", flush=True)
+    counts = hold["counts"]
+    del hold, head, view, xt
+    torch.cuda.empty_cache()
+    return {"coded_matvec": 0, "mds_encode": counts["mds_encode"],
+            "mds_decode": counts["mds_decode"], "lstm_cell": counts["lstm_cell"],
+            "coded_matvec (multi design, lm_head)": counts["coded_matvec"]}, rec
 
 
 def main() -> int:
@@ -2610,6 +2909,15 @@ def main() -> int:
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["families_launches"] = family_counts.get(rec["name"], 0)
 
+    # -- 9. serving the encoder-decoder ----------------------------------------
+    t0 = time.perf_counter()
+    encdec_counts, encdec = encdec_phase(dev, compare, in_turns)
+    encdec["phase_s"] = time.perf_counter() - t0
+    print(f"encdec phase: {encdec['phase_s']:.1f} s", flush=True)
+    for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
+        rec["encdec_launches"] = encdec_counts.get(rec["name"], 0)
+
+    print(json.dumps({"encdec": encdec}))
     print(json.dumps({"families": families}))
     print(json.dumps({"serve": served}))
     print(json.dumps({"workloads": workloads}))

@@ -1,5 +1,5 @@
 """Carry the JAX package's parameters into the port: the predictor's, and
-an LM's (:func:`lm_params_from_jax`).
+an LM's or the encoder-decoder's (:func:`lm_params_from_jax`).
 
 The JAX package keeps the LSTM predictor's parameters as a dict of arrays
 (``w_ih (4H, I)``, ``w_hh (4H, H)``, ``b (4H,)``, ``w_out (O, H)``,
@@ -56,6 +56,7 @@ import torch
 from repro_torch.core.predictor import LSTMParams, LSTMPredictor
 
 if TYPE_CHECKING:
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.lm import LM
 
 __all__ = ["DEFAULT_PARAMS", "INIT_PARAMS", "params_from_jax", "load_params", "load_params_numpy",
@@ -112,43 +113,54 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def lm_params_from_jax(params: Mapping, model: LM) -> LM:
+def lm_params_from_jax(params: Mapping, model: LM | EncDecLM) -> LM | EncDecLM:
     """Copy the JAX package's LM parameters into ``model``, in place.
 
     ``params`` is the tree of the JAX package's ``initialize(model.specs(),
     key)`` with numpy arrays as leaves (float32 or bfloat16).  The JAX
-    package stacks each slot of the layer period over the periods:
-    ``slots/s{i}/...[p]`` is the port's layer ``p·plen + i``, and
-    ``rem/r{j}/...`` its layer ``n_periods·plen + j``.  Raises KeyError for a
-    name missing on either side and ValueError for a shape that differs.
-    Returns ``model``.
+    package stacks each slot of the decoder's layer period over the
+    periods: ``slots/s{i}/...[p]`` is the port's layer ``p·plen + i``, and
+    ``rem/r{j}/...`` its layer ``n_periods·plen + j``.  The encoder-decoder
+    stacks every layer of each stack on one axis, with no period:
+    ``enc/...[i]`` is the port's ``enc.<i>`` and ``dec/...[i]`` its
+    ``dec.<i>``.  Raises KeyError for a name missing on either side and
+    ValueError for a shape that differs.  Returns ``model``.
     """
-    from repro_torch.models.lm import period_layout   # the LM stack only for LM users
+    cfg = model.cfg
+    if cfg.is_encdec:
+        stacks = {"enc": cfg.enc_layers, "dec": cfg.num_layers}
+
+        def locate(parts):      # -> (key, index in the stack, stacked count)
+            if parts[0] in stacks:
+                return f"{parts[0]}/" + "/".join(parts[2:]), int(parts[1]), stacks[parts[0]]
+            return "/".join(parts), None, 0
+    else:
+        from repro_torch.models.lm import period_layout   # the LM stack only for LM users
+
+        period, n_periods, _ = period_layout(cfg)
+        plen = len(period)
+
+        def locate(parts):
+            if parts[0] != "layers":
+                return "/".join(parts), None, 0
+            layer, rest = int(parts[1]), "/".join(parts[2:])
+            if layer < n_periods * plen:
+                index, slot = divmod(layer, plen)
+                return f"slots/s{slot}/{rest}", index, n_periods
+            return f"rem/r{layer - n_periods * plen}/{rest}", None, 0
 
     flat = _flatten(params)
-    period, n_periods, _ = period_layout(model.cfg)
-    plen = len(period)
     used = set()
     with torch.no_grad():
         for name, dst in model.named_parameters():
-            parts = name.split(".")
-            index = None
-            if parts[0] == "layers":
-                layer, rest = int(parts[1]), "/".join(parts[2:])
-                if layer < n_periods * plen:
-                    index, slot = divmod(layer, plen)
-                    key = f"slots/s{slot}/{rest}"
-                else:
-                    key = f"rem/r{layer - n_periods * plen}/{rest}"
-            else:
-                key = "/".join(parts)
+            key, index, stacked = locate(name.split("."))
             if key not in flat:
                 raise KeyError(f"the JAX parameters have no {key} (the port's {name})")
             src = np.asarray(flat[key])
             if index is not None:
-                if src.ndim == 0 or src.shape[0] != n_periods:
-                    raise ValueError(f"{key} has shape {src.shape}, not {n_periods} stacked "
-                                     "periods")
+                if src.ndim == 0 or src.shape[0] != stacked:
+                    raise ValueError(f"{key} has shape {src.shape}, not {stacked} stacked "
+                                     "layers or periods")
                 src = src[index]
             if src.shape != tuple(dst.shape):
                 raise ValueError(f"{key} has shape {src.shape}, the port's {name} "
@@ -157,5 +169,5 @@ def lm_params_from_jax(params: Mapping, model: LM) -> LM:
             used.add(key)
     extra = sorted(set(flat) - used)
     if extra:
-        raise KeyError(f"the JAX parameters {extra} have no place in the port's {model.cfg.name}")
+        raise KeyError(f"the JAX parameters {extra} have no place in the port's {cfg.name}")
     return model

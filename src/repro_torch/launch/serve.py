@@ -14,8 +14,10 @@ and on the CPU, on the reduced config:
 
 The weights are random, drawn from ``--seed``.  Every decoder arch is
 served (the dense, vlm, MoE, SSM and hybrid families); the
-encoder-decoder (seamless-m4t-large-v2) raises ``NotImplementedError``,
-and the JAX package's entry point refuses it too.  ``--coded-head`` first
+encoder-decoder (seamless-m4t-large-v2) is refused with ``SystemExit``, as
+the JAX package's entry point refuses it: its model
+(``repro_torch.models.encdec.EncDecLM``) is driven through its own
+``prefill`` and ``decode_step``.  ``--coded-head`` first
 validates the S²C²-coded lm_head (a float32 copy of the head, (n, k) =
 (6, 4), 8 chunks) against the dense product under two stragglers.
 
@@ -58,10 +60,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build(args: argparse.Namespace):
     """The model ``args`` name, its weights drawn from ``--seed`` on
-    ``--device``."""
+    ``--device``; ``SystemExit`` for the encoder-decoder."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encdec:
+        raise SystemExit("enc-dec serving demo: use examples/ or dryrun "
+                         "(decode cells) — this driver targets decoder LMs")
     dev = resolve_device(args.device)
     return build_model(cfg, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(args.seed))

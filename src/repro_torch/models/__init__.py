@@ -1,14 +1,15 @@
-"""Architecture zoo on PyTorch: the decoder LM of every layer kind (the
-dense, vlm, MoE, SSM and hybrid families), ParamSpec-based.
+"""Architecture zoo on PyTorch: every family of the config registry,
+ParamSpec-based.
 
 * :mod:`repro_torch.models.params` — specs, initialisation, counts.
-* :mod:`repro_torch.models.layers` — norms, RoPE, attention, MLPs, head.
+* :mod:`repro_torch.models.layers` — norms, RoPE, attention (self and
+  cross), MLPs, head.
 * :mod:`repro_torch.models.moe` — the top-k Mixture-of-Experts block.
 * :mod:`repro_torch.models.ssm` — Mamba-2, mLSTM and sLSTM blocks.
-* :mod:`repro_torch.models.lm` — :class:`LM`.
-
-The encoder-decoder family (seamless-m4t-large-v2) raises
-``NotImplementedError`` (ROADMAP.md §1 item 1).
+* :mod:`repro_torch.models.lm` — :class:`LM`, the decoder of the dense,
+  vlm, MoE, SSM and hybrid families.
+* :mod:`repro_torch.models.encdec` — :class:`EncDecLM`, the
+  encoder-decoder (seamless-m4t-large-v2).
 """
 
 from __future__ import annotations
@@ -18,14 +19,14 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import LM, not_ported
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.lm import LM
 
-__all__ = ["build_model", "LM"]
+__all__ = ["build_model", "LM", "EncDecLM"]
 
 
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda",
-                generator: Optional[torch.Generator] = None) -> LM:
+                generator: Optional[torch.Generator] = None) -> LM | EncDecLM:
     """Factory: the model of an ArchConfig, its parameters on ``device``."""
-    if cfg.is_encdec:
-        raise not_ported("encdec", cfg)
-    return LM(cfg, device=device, generator=generator)
+    model = EncDecLM if cfg.is_encdec else LM
+    return model(cfg, device=device, generator=generator)

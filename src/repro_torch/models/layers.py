@@ -14,7 +14,11 @@ key and value into the cache in place (the JAX function returns new
 caches; a full-width cache is too large to copy every token), and a
 position outside a full-length cache raises where
 ``jax.lax.dynamic_update_slice`` would clamp it onto the last slot.
-Cross-attention (encoder-decoder) is ported with ``models/encdec.py``.
+Cross-attention (the encoder-decoder's, ``models/encdec.py``) has no rope:
+``cross_attn_apply`` attends over the whole encoder output, and
+``cross_attn_decode``, the decode step's cross-attention that the JAX
+package writes inline in ``EncDecLM.decode_step``, reads the static
+encoder K/V at ``pos = enc_len - 1`` with no window and no softcap.
 """
 
 from __future__ import annotations
@@ -303,6 +307,41 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Dict[str, to
                            softcap=cfg.logit_softcap, rotating=rotating)
     y = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec): kv precomputed from encoder output
+# ---------------------------------------------------------------------------
+
+def cross_attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    return attn_specs(cfg)
+
+
+def cross_attn_apply(p: Params, x: torch.Tensor, enc_k: torch.Tensor,
+                     enc_v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, d); enc_k/enc_v: (B, T, KV, hd) — no mask (full cross)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    out = blockwise_attention(q, enc_k, enc_v, causal=False, window=0)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor,
+             cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, t, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                      cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One token's cross-attention against the static encoder K/V cache
+    {"k": (B, T, KV, hd), "v": ...}, which it never writes."""
+    b = x.shape[0]
+    q = (x @ p["wq"]).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    att = decode_attention(q, cache["k"], cache["v"], pos=cache["k"].shape[1] - 1)
+    return att.reshape(b, 1, cfg.q_dim) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,7 @@ Paths:
 
 Each application of Zamba2's shared block keeps its own KV cache, under
 ``"shared"`` in the entry of the layer it precedes.  The encoder-decoder
-(``models/encdec.py``) raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it; nothing runs in its place.
+is :class:`repro_torch.models.encdec.EncDecLM`; ``LM`` refuses its config.
 """
 
 from __future__ import annotations
@@ -48,20 +47,9 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamSpec, cast_specs, initialize
 
-__all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "shared_attn_specs",
-           "not_ported"]
+__all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "shared_attn_specs"]
 
 Params = Dict[str, Any]
-
-# the ROADMAP.md §1 item that ports each model kind still left out
-_NOT_PORTED = {
-    "encdec": "models/encdec.py, ROADMAP.md §1 item 1",
-}
-
-
-def not_ported(what: str, cfg: ArchConfig) -> NotImplementedError:
-    return NotImplementedError(f"{cfg.name}: {what} is not ported to PyTorch yet "
-                               f"({_NOT_PORTED[what]})")
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +193,9 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it with "
+                             "repro_torch.models.encdec.EncDecLM (or build_model)")
         dev = torch.device(device)
         if dev.type != "meta":
             dev = resolve_device(dev)
@@ -230,8 +221,6 @@ class LM(nn.Module):
         package stacks them per slot of the period; the leaves and their
         count are the same)."""
         cfg = self.cfg
-        if cfg.is_encdec:
-            raise not_ported("encdec", cfg)
         out: Params = {"embed": L.embed_specs(cfg), "final_norm": L.norm_spec(cfg),
                        "layers": [block_specs(cfg, slot) for slot in layer_slots(cfg)]}
         if cfg.shared_attn_every:

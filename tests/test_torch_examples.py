@@ -19,7 +19,8 @@ def _run(name: str) -> str:
     return out.stdout
 
 
-@pytest.mark.parametrize("name", ["torch_quickstart.py", "torch_pagerank.py"])
+@pytest.mark.parametrize("name", ["torch_quickstart.py", "torch_pagerank.py",
+                                  "torch_serve_lm.py"])
 def test_example_runs_and_asserts(name):
     assert _run(name).splitlines()[-1] == "OK"
 

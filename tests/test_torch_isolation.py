@@ -5,7 +5,8 @@
 2. Importing the port's modules leaves ``jax`` and ``repro`` out of
    ``sys.modules`` (a fresh interpreter).
 3. An entry point left at its default device raises where there is no card,
-   and an LM family that is not ported raises ``NotImplementedError``.
+   and the serving entry point refuses the encoder-decoder with ``SystemExit``,
+   as the JAX package's does.
 4. A CUDA tensor that reaches ``ops`` without a built kernel library raises;
    it is never handed to the plain version.
 5. A run on the CPU launches no kernel: every counter stays at 0.
@@ -114,16 +115,18 @@ def test_serving_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
 def test_families_not_ported_raise(arch):
-    """No other model runs in the place of one that is not ported: the
-    constructors, at full size and reduced, and the serving driver raise."""
+    """Every family is ported: the encoder-decoder's constructors build, at
+    full size on ``meta`` and reduced on the CPU, and the serving entry point
+    refuses the arch with ``SystemExit``, as the JAX package's does; no
+    other model runs in its place."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main
-    from repro_torch.models import LM, build_model
-    for make in (lambda: LM(get_config(arch), device="meta"),
-                 lambda: build_model(get_config(arch).reduced(), device="cpu"),
-                 lambda: main(["--arch", arch, "--reduced", "--device", "cpu"])):
-        with pytest.raises(NotImplementedError, match="not ported to PyTorch yet"):
-            make()
+    from repro_torch.models import EncDecLM, build_model
+    assert isinstance(EncDecLM(get_config(arch), device="meta"), EncDecLM)
+    assert isinstance(build_model(get_config(arch).reduced(), device="cpu"), EncDecLM)
+    for argv in (["--arch", arch], ["--arch", arch, "--reduced", "--device", "cpu"]):
+        with pytest.raises(SystemExit, match="targets decoder LMs"):
+            main(argv)
 
 
 def test_port_examples_import_neither_jax_nor_repro():

@@ -401,8 +401,15 @@ def test_converter_raises_on_a_missing_name_or_a_shape():
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
 def test_families_left_out_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 1"):
-        build_model(get_config(arch).reduced(), device="cpu")
+    """No family is left out any more: ``build_model`` gives the
+    encoder-decoder its own model (``tests/test_torch_encdec.py`` holds it
+    to the JAX package), and ``LM`` refuses the config."""
+    from repro_torch.models import EncDecLM
+
+    model = build_model(get_config(arch).reduced(), device="cpu")
+    assert isinstance(model, EncDecLM) and model.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="EncDecLM"):
+        LM(get_config(arch).reduced(), device="cpu")
 
 
 @pytest.mark.cuda
