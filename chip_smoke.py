@@ -202,13 +202,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        version), then the multi design (nb = 32 blocks of 8,008 rows) in
        turns against ``x @ head`` and the plain version, beside its bound.
 
-The last lines are phase 9's, 8's, 7's and 6's records as JSON, the
+10. training on the card through ``repro_torch.launch.train.main``, the
+    kernels' launch counters zeroed before (a) and read after (b):
+    (a) xlstm-125m whole (12 layers, 9 mLSTM and 3 sLSTM, d_model 768,
+        vocab 50,304, random from seed 0) with ``examples/train_lm.py``'s
+        flags without ``--reduced``: coded DP over 8 groups tolerating 2, group
+        3 killed at step 10, batch 16, seq 48, 20 steps into a temporary
+        checkpoint directory (24 microbatches a step); every loss finite
+        and ``loss_improved=True`` printed; then ``main`` again with 24
+        steps, which must resume from the step-19 checkpoint and run the 4
+        steps left; each step's time (the card synchronised at its start)
+        and the peak memory;
+    (b) zamba2-1.2b whole (38 Mamba-2 layers and the shared attention
+        block, 1.17 B parameters) for 3 coded AdamW steps over 8 groups,
+        its peak memory beside the reckoning of the JAX package's
+        functional step (parameters, AdamW moments, 8 float32 coded trees,
+        the decoded tree and its /n copy, a microbatch's gradients);
+    (c) the sLSTM scan's backward (autograd through ``ssm._slstm_scan``'s
+        loop) on one xlstm-125m sLSTM layer, float32: at B = 2, S = 64,
+        (dr, db, dxw) against the same loop's in float64 within 1e-4 of
+        each gradient's largest value; at S = 64 and 2,048, forward and
+        backward between CUDA events and the memory the backward's graph
+        held, beside the outputs' bytes;
+    (d) every kernel counter reads 0 across (a) and (b): the training path,
+        like the JAX package's, reaches none of the four kernels;
+    (e) one coded microbatch of each (B = 2, S = 48: ``loss_fn`` and the
+        gradient of every parameter) under ``torch.profiler``: its kernels'
+        time, launches and the device's idle share.
+
+The last lines are phase 10's, 9's, 8's, 7's and 6's records as JSON, the
 in-turn times as JSON, the per-kernel record as JSON (``ms``, ``plain_ms``
 and ``library_ms`` are device times; ``*call_ms`` the per-call times;
 ``launches`` the main path's, ``cluster_launches`` the cluster phase's,
 ``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
 point's, ``families_launches`` phase 8's three entry points',
-``encdec_launches`` phase 9's coded head's) and the device line.
+``encdec_launches`` phase 9's coded head's, ``train_launches`` phase 10's,
+all 0) and the device line.
 The record of ``coded_matvec``'s multi design that the cluster's
 ``matmul`` rounds launch is at a chunk's shape at B = 8, and its
 ``launches`` are the cluster phase's; the
@@ -221,6 +250,7 @@ the multi design at the lm_head's shape has phase 7's.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -306,6 +336,24 @@ HANDOFF_TOKENS = 12
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 ENCDEC_SMOKE = (16, 8, 8)       # frames, prompt tokens, decode steps at B = 4
 ENCDEC_CONTEXT = 2_048          # frames and prompt tokens of (b)
+
+# phase 10, training on the card through launch.train.main: xlstm-125m whole
+# with examples/train_lm.py's flags without --reduced (8 groups, 2 tolerated,
+# group 3 killed at step 10, batch 16, seq 48) for TRAIN_STEPS[0] steps, then
+# a restart to TRAIN_STEPS[1] that resumes from the last checkpoint;
+# zamba2-1.2b whole for BIG_STEPS coded AdamW steps; the sLSTM scan's
+# backward at B, S = SLSTM_BS, float32, against the same loop's in float64,
+# then timed and its graph's memory read at S = SLSTM_BS[1] and
+# SLSTM_LONG_S (the reduced config's, the CPU test's, shorter)
+TRAIN_ARCH = "xlstm-125m"
+TRAIN_BIG = "zamba2-1.2b"
+TRAIN_STEPS = (20, 24, 16, 48)          # steps, steps after the restart, batch, seq
+TRAIN_STEPS_REDUCED = (11, 13, 8, 16)   # the CPU test's
+BIG_STEPS = 3
+SLSTM_BS = (2, 64)
+SLSTM_LONG_S = {False: 2_048, True: 256}
+SLSTM_BWD_REL = 1e-4                    # of each gradient's largest value
+PROFILED_MICROBATCHES = 2
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -2371,6 +2419,306 @@ def encdec_phase(dev, compare, in_turns, reduced: bool = False) -> tuple:
             "coded_matvec (multi design, lm_head)": counts["coded_matvec"]}, rec
 
 
+# -- 10. training on the card -------------------------------------------------
+
+class Tee:
+    """Writes to the real stdout and keeps a copy, to read what an entry
+    point printed."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+class TrainProbe:
+    """Records what ``launch.train.main`` ran: ``train``'s metrics (the
+    module's own ``train`` wrapped by attribute) and the host's clock at
+    each ``CodedDPStep.step`` entry and at ``train``'s return, the card
+    synchronised first, so that the interval between two entries is one
+    whole step (the coded gradients, the update, the log line and any
+    checkpoint)."""
+
+    def __init__(self, dev):
+        import repro_torch.launch.train as launch_train
+        from repro_torch.runtime.train_loop import CodedDPStep
+
+        self.dev, self.metrics, self.entries = dev, [], []
+        self._module, self._cls = launch_train, CodedDPStep
+        self._train, self._step = launch_train.train, CodedDPStep.step
+
+    def __enter__(self):
+        probe = self
+
+        def train(*args, **kwargs):
+            out = probe._train(*args, **kwargs)
+            probe.mark()
+            probe.metrics.append(out)
+            return out
+
+        def step(self_, *args, **kwargs):
+            probe.mark()
+            return probe._step(self_, *args, **kwargs)
+
+        self._module.train, self._cls.step = train, step
+        return self
+
+    def __exit__(self, *exc):
+        self._module.train, self._cls.step = self._train, self._step
+
+    def mark(self):
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        self.entries.append(time.perf_counter())
+
+
+def run_train_main(argv: list, dev, label: str) -> tuple:
+    """``launch.train.main(argv)`` on ``dev``: (its metrics, its step times,
+    what it printed, its peak memory in GB)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.launch.train import main as train_main
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    with TrainProbe(dev) as probe, contextlib.redirect_stdout(tee):
+        rc = train_main(argv + ["--device", dev.type])
+    expect(f"{label}: launch.train.main's exit code", rc, 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    # every step's interval but the last, which holds the final checkpoint
+    step_s = [b - a for a, b in zip(probe.entries[:-1], probe.entries[1:-1])]
+    metrics = probe.metrics[-1]
+    losses = metrics["losses"]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"{label}: losses not all finite: {losses}")
+    print(f"{label}: {len(losses)} steps, losses {[round(v, 4) for v in losses]}; median step "
+          f"{statistics.median(step_s):.3f} s (min {min(step_s):.3f}, max {max(step_s):.3f}); "
+          f"peak memory {peak:.2f} GB", flush=True)
+    return metrics, step_s, tee.text(), peak
+
+
+def coded_training_reckoning(model, n_groups: int) -> dict:
+    """The peak of coded AdamW training of ``model`` (GB) as the JAX
+    package's step holds it: the parameters, AdamW's two float32 moments,
+    ``n_groups`` float32 coded trees, the decoded tree and its /n copy, one
+    microbatch's gradients (the activations left out)."""
+    n = sum(p.numel() for p in model.parameters())
+    size = sum(p.numel() * p.element_size() for p in model.parameters())
+    parts = {"parameters": size, "adamw_state": 8 * n, "coded_trees": n_groups * 4 * n,
+             "decoded_and_scaled": 2 * 4 * n, "microbatch_grads": size}
+    return {k: v / 1e9 for k, v in parts.items()} | {"total": sum(parts.values()) / 1e9}
+
+
+def slstm_backward_at_width(dev, compare, reduced: bool) -> dict:
+    """(c) One xlstm-125m sLSTM layer's scan (``ssm._slstm_scan``), float32,
+    as the training path differentiates it (autograd through the loop): at
+    B = 2, S = 64 its gradients (dr, db, dxw) against the same loop's in
+    float64 on the same card tensors; then, at S = 64 and S = 2,048, its
+    forward and backward between CUDA events and the most memory the
+    backward's graph held (the peak above what was allocated before the
+    forward), beside the bytes of the outputs ``hs``, which is what a
+    backward that replays the forward (the JAX package's custom VJP)
+    would keep instead."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.params import initialize
+
+    cfg = get_config(TRAIN_ARCH)
+    if reduced:
+        cfg = cfg.reduced()
+    nh, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+    bsz = SLSTM_BS[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = initialize(SSM.slstm_specs(cfg), gen, dev)
+    r = p["r_gates"].float()
+    bias = torch.randn(4 * cfg.d_model, generator=gen, device=dev) * 0.5
+    on_card = dev.type == "cuda"
+
+    def inputs(s):
+        x = torch.randn(bsz, s, cfg.d_model, generator=gen, device=dev)
+        xw = (x @ p["w_gates"].float()).reshape(bsz, s, nh, 4 * hd)
+        return xw, torch.randn(bsz, s, nh, hd, generator=gen, device=dev)
+
+    def grads(xw, g_hs, dtype=torch.float32):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (r, bias, xw)]
+        hs = SSM._slstm_scan(leaves[0], leaves[1].reshape(nh, -1), leaves[2])[0]
+        return torch.autograd.grad(hs, leaves, g_hs.to(dtype))
+
+    xw, g_hs = inputs(SLSTM_BS[1])
+    errs = {}
+    for name, got, want in zip(("dr", "db", "dxw"), grads(xw, g_hs),
+                               grads(xw, g_hs, torch.float64)):
+        scale = float(want.abs().max())
+        errs[name] = compare(f"phase 10 (c): sLSTM backward {name} (float32 vs float64)",
+                             got.double() / scale, want / scale, SLSTM_BWD_REL)
+    runs = {}
+    for s in (SLSTM_BS[1], SLSTM_LONG_S[reduced]):
+        xw, g_hs = inputs(s)
+        grads(xw, g_hs)
+        times, graph_gb = [], 0.0
+        for _ in range(2):
+            if on_card:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = grads(xw, g_hs)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            if on_card:
+                graph_gb = max(graph_gb, (torch.cuda.max_memory_allocated() - base) / 1e9)
+            del out
+        hs_gb = bsz * s * cfg.d_model * 4 / 1e9
+        runs[s] = {"ms": times, "graph_gb": graph_gb, "hs_gb": hs_gb}
+        print(f"phase 10 (c): sLSTM scan forward + backward at B = {bsz}, S = {s}, "
+              f"d = {cfg.d_model}, float32: {times} ms; the backward's graph peaked "
+              f"{graph_gb:.4f} GB above the inputs (hs {hs_gb:.4f} GB)", flush=True)
+    print(f"phase 10 (c): largest error against float64 over each gradient's largest value "
+          f"{errs} (limit {SLSTM_BWD_REL})", flush=True)
+    return {"rel_err": errs, "runs": runs, "b": bsz, "d": cfg.d_model}
+
+
+def microbatch_profile(arch: str, dev, seq: int, reduced: bool) -> dict:
+    """(e) One coded microbatch of ``arch`` as ``CodedDPStep`` runs it
+    (about 2 sequences: ``loss_fn`` and ``torch.autograd.grad`` over every
+    parameter), random from seed 0, under ``torch.profiler``: its kernels'
+    device time, launches and the device's idle share of the host's time."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    mb = {k: torch.from_numpy(v).to(dev).long() for k, v in TokenPipeline(
+        vocab_size=cfg.vocab_size, batch=2, seq_len=seq, seed=0).next_batch().items()}
+    params = list(model.parameters())
+
+    def step():
+        return torch.autograd.grad(model.loss_fn(mb), params)
+
+    step()
+    got = device_kernel_ms(step, PROFILED_MICROBATCHES)
+    del model, params
+    if got is None:
+        print(f"phase 10 (e) {arch}: the profiler recorded no device time", flush=True)
+        return {"kernel_ms": None}
+    busy, host, launches, top = got
+    rec = {"kernel_ms": busy, "host_ms": host, "launches": launches,
+           "idle_share": 1 - busy / host, "top": top}
+    print(f"phase 10 (e) {arch}: a microbatch (B = 2, S = {seq}) {host:.1f} ms on the host's "
+          f"clock, {busy:.2f} ms of kernels in {launches:.0f} launches, idle "
+          f"{100 * rec['idle_share']:.1f} %; top {top}", flush=True)
+    return rec
+
+
+def train_phase(dev, compare, reduced: bool = False) -> tuple:
+    """Phase 10: train on the card through ``launch.train.main``: (a)
+    xlstm-125m whole, coded DP over 8 groups with group 3 dead from step
+    10, then a restart that resumes from its checkpoint; (b) zamba2-1.2b
+    whole, 3 coded AdamW steps, its peak memory beside the reckoning; (c)
+    the sLSTM scan's backward at full width against float64, timed and its
+    graph's memory read at S = 64 and 2,048; (d) every kernel counter at 0
+    over (a) and (b); (e) one microbatch of each under the profiler.
+    ``reduced`` runs the reduced configs and fewer steps, as the CPU test
+    does.  Returns the kernels' launches over (a) and (b) by
+    record name, and the phase's record."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    steps, more, batch, seq = TRAIN_STEPS_REDUCED if reduced else TRAIN_STEPS
+    small = ["--reduced"] if reduced else []
+    record = {}
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # (a) xlstm-125m: the example's flags at full width, then a restart
+        flags = ["--arch", TRAIN_ARCH, "--coded-dp", "--groups", "8", "--tolerate", "2",
+                 "--fail-group", "3", "--batch", str(batch), "--seq", str(seq),
+                 "--ckpt-dir", os.path.join(tmp, "xlstm")] + small
+        t0 = time.perf_counter()
+        first, step_s, out, peak = run_train_main(flags + ["--steps", str(steps)], dev,
+                                                  "phase 10 (a) xlstm-125m")
+        first_s = time.perf_counter() - t0
+        if "[train] loss_improved=True" not in out.splitlines():
+            raise RuntimeError("phase 10 (a): launch.train.main did not print "
+                               "loss_improved=True")
+        if "dead=[3]" not in out:
+            raise RuntimeError("phase 10 (a): group 3 was not dead at step 10")
+        expect("phase 10 (a): steps run", len(first["losses"]), steps)
+        resumed, resumed_step_s, _, _ = run_train_main(flags + ["--steps", str(more)], dev,
+                                                       "phase 10 (a) xlstm-125m, restarted")
+        # resumed from the last checkpoint (step steps - 1) with the cursor
+        expect("phase 10 (a): steps run after the restart", len(resumed["losses"]),
+               more - steps)
+        record["xlstm"] = {
+            "arch": TRAIN_ARCH, "steps": steps, "restart_steps": more, "batch": batch,
+            "seq": seq, "groups": 8, "tolerate": 2, "fail_group": 3,
+            "losses": first["losses"], "final_loss": first["final_loss"],
+            "restart_losses": resumed["losses"], "loss_improved": True,
+            "step_s": step_s, "median_step_s": statistics.median(step_s),
+            "restart_step_s": resumed_step_s, "run_s": first_s, "peak_gb": peak,
+            "microbatches_per_step": 8 * 3}
+
+        # (b) zamba2-1.2b whole: 3 coded AdamW steps, 8 groups
+        meta = build_model(get_config(TRAIN_BIG) if not reduced
+                           else get_config(TRAIN_BIG).reduced(), device="meta")
+        reckoned = coded_training_reckoning(meta, 8)
+        del meta
+        big, big_step_s, _, big_peak = run_train_main(
+            ["--arch", TRAIN_BIG, "--coded-dp", "--groups", "8", "--tolerate", "2",
+             "--batch", str(batch), "--seq", str(seq), "--steps", str(BIG_STEPS),
+             "--ckpt-dir", os.path.join(tmp, "zamba2")] + small, dev, "phase 10 (b) zamba2-1.2b")
+        expect("phase 10 (b): steps run", len(big["losses"]), BIG_STEPS)
+        print(f"phase 10 (b): zamba2-1.2b peak memory {big_peak:.2f} GB; reckoned "
+              f"{reckoned['total']:.2f} GB (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in reckoned.items() if k != "total") + ")",
+              flush=True)
+        record["zamba2"] = {"arch": TRAIN_BIG, "steps": BIG_STEPS, "losses": big["losses"],
+                            "step_s": big_step_s, "peak_gb": big_peak,
+                            "reckoned_gb": reckoned}
+    launches = ops.launch_counts()
+    designs = ops.design_counts()
+    # (d) the training path reaches no kernel, as the JAX package's reaches
+    # no Pallas kernel: every counter reads 0 across (a) and (b)
+    expect("phase 10 (d): kernel launches while training", launches,
+           dict.fromkeys(launches, 0))
+    expect("phase 10 (d): designs launched while training", designs,
+           {k: dict.fromkeys(v, 0) for k, v in designs.items()})
+    print(f"phase 10 (d): launches over (a) and (b): {launches}", flush=True)
+    record["launches"] = launches
+    # (c) the sLSTM scan's backward at full width
+    record["slstm_backward"] = slstm_backward_at_width(dev, compare, reduced)
+    # (e) where a step's time goes: one microbatch of each under the profiler
+    for key, arch in (("xlstm", TRAIN_ARCH), ("zamba2", TRAIN_BIG)):
+        record[key]["microbatch"] = microbatch_profile(arch, dev, seq, reduced)
+    return launches, record
+
+
 def main() -> int:
     import torch
 
@@ -2917,6 +3265,15 @@ def main() -> int:
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["encdec_launches"] = encdec_counts.get(rec["name"], 0)
 
+    # -- 10. training on the card ----------------------------------------------
+    t0 = time.perf_counter()
+    train_counts, trained = train_phase(dev, compare)
+    trained["phase_s"] = time.perf_counter() - t0
+    print(f"train phase: {trained['phase_s']:.1f} s", flush=True)
+    for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
+        rec["train_launches"] = train_counts.get(rec["name"], 0)
+
+    print(json.dumps({"train": trained}))
     print(json.dumps({"encdec": encdec}))
     print(json.dumps({"families": families}))
     print(json.dumps({"serve": served}))

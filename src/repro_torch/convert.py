@@ -1,5 +1,9 @@
 """Carry the JAX package's parameters into the port: the predictor's, and
-an LM's or the encoder-decoder's (:func:`lm_params_from_jax`).
+an LM's or the encoder-decoder's (:func:`lm_params_from_jax`), through one
+mapping between the JAX package's stacked LM tree and the port's parameter
+names (:func:`jax_layout`) that also maps gradients and optimizer state
+(:func:`unstack`) and groups the port's tensors as the JAX leaves
+(:func:`group`).
 
 The JAX package keeps the LSTM predictor's parameters as a dict of arrays
 (``w_ih (4H, I)``, ``w_hh (4H, H)``, ``b (4H,)``, ``w_out (O, H)``,
@@ -48,7 +52,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import TYPE_CHECKING, Mapping
+from typing import TYPE_CHECKING, Mapping, TypeVar
 
 import numpy as np
 import torch
@@ -60,7 +64,9 @@ if TYPE_CHECKING:
     from repro_torch.models.lm import LM
 
 __all__ = ["DEFAULT_PARAMS", "INIT_PARAMS", "params_from_jax", "load_params", "load_params_numpy",
-           "lm_params_from_jax"]
+           "lm_params_from_jax", "jax_layout", "unstack", "group"]
+
+T = TypeVar("T")
 
 DEFAULT_PARAMS = Path(__file__).resolve().parent / "data" / "lstm_predictor.json"
 INIT_PARAMS = DEFAULT_PARAMS.with_name("lstm_predictor_init.json")
@@ -113,24 +119,24 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def lm_params_from_jax(params: Mapping, model: LM | EncDecLM) -> LM | EncDecLM:
-    """Copy the JAX package's LM parameters into ``model``, in place.
+def jax_layout(model: LM | EncDecLM) -> dict[str, tuple[str, int | None, int]]:
+    """Where each of ``model``'s parameters sits in the JAX package's tree.
 
-    ``params`` is the tree of the JAX package's ``initialize(model.specs(),
-    key)`` with numpy arrays as leaves (float32 or bfloat16).  The JAX
-    package stacks each slot of the decoder's layer period over the
-    periods: ``slots/s{i}/...[p]`` is the port's layer ``p·plen + i``, and
-    ``rem/r{j}/...`` its layer ``n_periods·plen + j``.  The encoder-decoder
-    stacks every layer of each stack on one axis, with no period:
-    ``enc/...[i]`` is the port's ``enc.<i>`` and ``dec/...[i]`` its
-    ``dec.<i>``.  Raises KeyError for a name missing on either side and
-    ValueError for a shape that differs.  Returns ``model``.
+    Returns {the port's name ("layers.5.mlstm.wq"): (the JAX key
+    ("slots/s1/mlstm/wq"), the index in its stack or None, the stack's
+    length or 0)}.  The JAX package stacks each slot of the decoder's layer
+    period over the periods: ``slots/s{i}/...[p]`` is the port's layer
+    ``p·plen + i``, and ``rem/r{j}/...`` its layer ``n_periods·plen + j``.
+    The encoder-decoder stacks every layer of each stack on one axis, with
+    no period: ``enc/...[i]`` is the port's ``enc.<i>`` and ``dec/...[i]``
+    its ``dec.<i>``.  One mapping serves the parameters, their gradients
+    and the optimizer's state (:func:`unstack`, :func:`group`).
     """
     cfg = model.cfg
     if cfg.is_encdec:
         stacks = {"enc": cfg.enc_layers, "dec": cfg.num_layers}
 
-        def locate(parts):      # -> (key, index in the stack, stacked count)
+        def locate(parts):
             if parts[0] in stacks:
                 return f"{parts[0]}/" + "/".join(parts[2:]), int(parts[1]), stacks[parts[0]]
             return "/".join(parts), None, 0
@@ -149,25 +155,62 @@ def lm_params_from_jax(params: Mapping, model: LM | EncDecLM) -> LM | EncDecLM:
                 return f"slots/s{slot}/{rest}", index, n_periods
             return f"rem/r{layer - n_periods * plen}/{rest}", None, 0
 
-    flat = _flatten(params)
-    used = set()
-    with torch.no_grad():
-        for name, dst in model.named_parameters():
-            key, index, stacked = locate(name.split("."))
-            if key not in flat:
-                raise KeyError(f"the JAX parameters have no {key} (the port's {name})")
-            src = np.asarray(flat[key])
-            if index is not None:
-                if src.ndim == 0 or src.shape[0] != stacked:
-                    raise ValueError(f"{key} has shape {src.shape}, not {stacked} stacked "
-                                     "layers or periods")
-                src = src[index]
-            if src.shape != tuple(dst.shape):
-                raise ValueError(f"{key} has shape {src.shape}, the port's {name} "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(torch.tensor(np.asarray(src, np.float32)).to(dst.dtype))
-            used.add(key)
+    return {name: locate(name.split(".")) for name, _ in model.named_parameters()}
+
+
+def unstack(tree: Mapping, model: LM | EncDecLM) -> dict[str, np.ndarray]:
+    """A tree shaped like the JAX package's parameters (the parameters
+    themselves, their gradients, or one field of the optimizer's state) as
+    {the port's parameter name: array}, each stacked leaf sliced to its
+    layer.  Raises KeyError for a name missing on either side and
+    ValueError for a shape that differs from the port's parameter."""
+    flat = _flatten(tree)
+    shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    out, used = {}, set()
+    for name, (key, index, stacked) in jax_layout(model).items():
+        if key not in flat:
+            raise KeyError(f"the JAX parameters have no {key} (the port's {name})")
+        src = np.asarray(flat[key])
+        if index is not None:
+            if src.ndim == 0 or src.shape[0] != stacked:
+                raise ValueError(f"{key} has shape {src.shape}, not {stacked} stacked "
+                                 "layers or periods")
+            src = src[index]
+        if src.shape != shapes[name]:
+            raise ValueError(f"{key} has shape {src.shape}, the port's {name} {shapes[name]}")
+        out[name] = src
+        used.add(key)
     extra = sorted(set(flat) - used)
     if extra:
-        raise KeyError(f"the JAX parameters {extra} have no place in the port's {cfg.name}")
+        raise KeyError(f"the JAX parameters {extra} have no place in the port's {model.cfg.name}")
+    return out
+
+
+def group(named: Mapping[str, T], model: LM | EncDecLM) -> dict[str, T | list[T]]:
+    """The inverse of :func:`unstack`'s slicing: values by the port's
+    parameter name (the parameters, their gradients) grouped as the JAX
+    package's leaves, {JAX key: the value of an unstacked leaf, or the list
+    of the stack's values in stack order}.  The optimizer works on this
+    grouping, so that Adafactor factors and clips each JAX leaf whole."""
+    out: dict = {}
+    for name, (key, index, stacked) in jax_layout(model).items():
+        if index is None:
+            out[key] = named[name]
+        else:
+            out.setdefault(key, [None] * stacked)[index] = named[name]
+    return out
+
+
+def lm_params_from_jax(params: Mapping, model: LM | EncDecLM) -> LM | EncDecLM:
+    """Copy the JAX package's LM parameters into ``model``, in place.
+
+    ``params`` is the tree of the JAX package's ``initialize(model.specs(),
+    key)`` with numpy arrays as leaves (float32 or bfloat16), mapped by
+    :func:`unstack`.  Raises KeyError for a name missing on either side and
+    ValueError for a shape that differs.  Returns ``model``.
+    """
+    arrays = unstack(params, model)
+    with torch.no_grad():
+        for name, dst in model.named_parameters():
+            dst.copy_(torch.tensor(np.asarray(arrays[name], np.float32)).to(dst.dtype))
     return model

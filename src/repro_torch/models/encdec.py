@@ -18,6 +18,11 @@ writes the self-attention cache at ``pos`` in place, as ``LM.decode_step``
 does, and reads the cross cache, which it never writes.  The JAX package's
 serving entry point refuses this arch, and so does the port's
 (``launch/serve.py``): a caller drives these methods.
+
+Training: ``forward_train`` and ``loss_fn`` are differentiable, each
+encoder and decoder block under ``torch.utils.checkpoint`` when
+``cfg.remat`` (the JAX package's ``jax.checkpoint`` of each stack's scan
+body).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _module
+from repro_torch.models.lm import _module, remat_apply
 from repro_torch.models.params import ParamSpec, cast_specs, initialize
 
 __all__ = ["EncDecLM", "enc_block_specs", "dec_block_specs"]
@@ -47,6 +52,21 @@ def dec_block_specs(cfg: ArchConfig) -> Params:
     return {"norm1": L.norm_spec(cfg), "self_attn": L.attn_specs(cfg),
             "norm_x": L.norm_spec(cfg), "cross_attn": L.cross_attn_specs(cfg),
             "norm2": L.norm_spec(cfg), "mlp": L.mlp_specs(cfg)}
+
+
+def _enc_block(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = x + L.attn_apply(p["attn"], L.apply_norm(p["norm1"], x), cfg, causal=False,
+                         local=False)
+    return x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+
+
+def _dec_block(p, x: torch.Tensor, enc_out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """One decoder block of the training forward."""
+    x = x + L.attn_apply(p["self_attn"], L.apply_norm(p["norm1"], x), cfg, causal=True,
+                         local=False)
+    k, v = L.cross_kv(p["cross_attn"], enc_out, cfg)
+    x = x + L.cross_attn_apply(p["cross_attn"], L.apply_norm(p["norm_x"], x), k, v, cfg)
+    return x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
 
 
 class EncDecLM(nn.Module):
@@ -109,9 +129,7 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         x = frames.to(self.cache_dtype()) @ self.frontend_proj
         for p in self.enc:
-            x = x + L.attn_apply(p["attn"], L.apply_norm(p["norm1"], x), cfg, causal=False,
-                                 local=False)
-            x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+            x = remat_apply(_enc_block, cfg.remat, p, x, cfg)
         return L.apply_norm(self.enc_norm, x)
 
     # -- decoder (training) ----------------------------------------------------
@@ -122,11 +140,7 @@ class EncDecLM(nn.Module):
         enc_out = self.encode(batch["frames"])
         x = L.embed_apply(self.embed, batch["tokens"])
         for p in self.dec:
-            x = x + L.attn_apply(p["self_attn"], L.apply_norm(p["norm1"], x), cfg, causal=True,
-                                 local=False)
-            k, v = L.cross_kv(p["cross_attn"], enc_out, cfg)
-            x = x + L.cross_attn_apply(p["cross_attn"], L.apply_norm(p["norm_x"], x), k, v, cfg)
-            x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
+            x = remat_apply(_dec_block, cfg.remat, p, x, enc_out, cfg)
         x = L.apply_norm(self.dec_norm, x)
         return L.head_apply(self.embed, x, cfg).float()
 

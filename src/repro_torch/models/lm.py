@@ -20,7 +20,9 @@ without a mesh, so the single-card port has none.
 Paths:
 
 * ``forward_train`` and ``loss_fn`` — the full-sequence forward and the
-  causal LM loss (forward only here; training is ported later);
+  causal LM loss, differentiable: each block runs under
+  ``torch.utils.checkpoint`` when ``cfg.remat`` (the JAX package's
+  ``jax.checkpoint``), which changes memory, never numbers;
 * ``prefill`` — full-sequence forward that also emits per-layer decode
   caches (attention K/V, the recurrent blocks' final states);
 * ``decode_step`` — one token over every layer with explicit caches, which
@@ -39,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -47,7 +50,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamSpec, cast_specs, initialize
 
-__all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "shared_attn_specs"]
+__all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "shared_attn_specs",
+           "remat_apply"]
 
 Params = Dict[str, Any]
 
@@ -168,6 +172,15 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, slot: Slot,
     return x + SSM.slstm_apply(p["slstm"], h, cfg)
 
 
+def remat_apply(fn, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    grad is on: the block's activations are recomputed in the backward
+    instead of kept (the JAX package's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _module(tree) -> nn.Module:
     """A dict of tensors as an ``nn.ParameterDict``; a dict of such dicts as
     an ``nn.ModuleDict``."""
@@ -245,7 +258,7 @@ class LM(nn.Module):
         cfg = self.cfg
         x = self._embed_inputs(batch)
         for slot, p in zip(self.slots, self.layers):
-            x = block_apply(p, x, cfg, slot, self.shared_attn)
+            x = remat_apply(block_apply, cfg.remat, p, x, cfg, slot, self.shared_attn)
         x = L.apply_norm(self.final_norm, x)
         return L.head_apply(self.embed, x, cfg).float()
 

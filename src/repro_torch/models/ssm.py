@@ -20,9 +20,8 @@ The stabilisers start at ``-1e30``, never ``-inf``, so that a difference of
 two of them stays finite.  JAX's three-operand einsums are written as an
 elementwise product and one batched matmul, which never builds the
 six-dimensional intermediate a left-to-right contraction would.  The scans
-across chunks and the sLSTM's scan over time are Python loops; the
-sLSTM's training backward (the JAX package's custom VJP) is ported with
-training (ROADMAP.md §1 item 2).
+across chunks and the sLSTM's scan over time are Python loops, which
+autograd differentiates for training.
 """
 
 from __future__ import annotations
@@ -110,9 +109,12 @@ def _ssd_chunk_scan(xh, dt, b, c, a_log, chunk: int):
     cc = c.reshape(bs, nc, 1, chunk, n)
 
     # --- intra-chunk (quadratic within chunk) ---
-    # L[i,j] = exp(cum_i - cum_j) for i >= j else 0; scores[i,j] = c_i · b_j
+    # L[i,j] = exp(cum_i - cum_j) for i >= j else 0; scores[i,j] = c_i · b_j.
+    # Masked before the exp: above the diagonal li >= 0 can pass 88 and
+    # exp(li) overflow, and the JAX package's where(mask, exp(li), 0) then
+    # has a NaN gradient (0 · inf); the forward is the same either way
     li = cum[..., :, None] - cum[..., None, :]                     # (B,nc,H,Q,Q)
-    decay = torch.where(_tril(chunk, xh.device), torch.exp(li), 0.0)
+    decay = torch.exp(torch.where(_tril(chunk, xh.device), li, -math.inf))
     op = (cc @ bc.transpose(-1, -2)) * decay                       # (B,nc,H,Q,Q)
     y_intra = op @ (xc * dtc[..., None])                           # (B,nc,H,Q,P)
 
@@ -395,22 +397,30 @@ def _slstm_step(r32: torch.Tensor, bias: torch.Tensor, carry, xw: torch.Tensor):
     return h_new, c_new, n_new, m_new
 
 
+def _slstm_scan(r32: torch.Tensor, bias: torch.Tensor, xw: torch.Tensor):
+    """The recurrence over xw (B, S, NH, 4hd) from a zero carry: (hs (B, S,
+    NH, hd), the final carry).  Autograd differentiates it step by step;
+    the JAX package's custom VJP for this scan (``_slstm_scan_cv``) exists
+    to keep a per-step all-reduce of the recurrent weights' gradient off a
+    data-parallel mesh, which one card does not have."""
+    bsz, s, nh, hd4 = xw.shape
+    zero = torch.zeros((bsz, nh, hd4 // 4), dtype=xw.dtype, device=xw.device)
+    carry = (zero, zero, zero, torch.full_like(zero, NEG))
+    hs = []
+    for t in range(s):
+        carry = _slstm_step(r32, bias, carry, xw[:, t])
+        hs.append(carry[0])
+    return torch.stack(hs, dim=1), carry
+
+
 def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, return_state: bool = False):
     """sLSTM full-sequence path: one recurrent step per position."""
     bsz, s, d = x.shape
     nh = cfg.num_heads
     hd = d // nh
     xw = (x @ p["w_gates"]).float().reshape(bsz, s, nh, 4 * hd)
-    r32 = p["r_gates"].float()
-    bias = p["b_gates"].reshape(nh, 4 * hd)
-    zero = torch.zeros((bsz, nh, hd), dtype=torch.float32, device=x.device)
-    carry = (zero, zero, zero, torch.full_like(zero, NEG))
-    hs = []
-    for t in range(s):
-        carry = _slstm_step(r32, bias, carry, xw[:, t])
-        hs.append(carry[0])
-    h = torch.stack(hs, dim=1).reshape(bsz, s, d).to(x.dtype)
-    out = h @ p["out_proj"]
+    hs, carry = _slstm_scan(p["r_gates"].float(), p["b_gates"].reshape(nh, 4 * hd), xw)
+    out = hs.reshape(bsz, s, d).to(x.dtype) @ p["out_proj"]
     if return_state:
         return out, dict(zip("hcnm", carry))
     return out

@@ -11,10 +11,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _run(name: str) -> str:
+def _run(name: str, *args: str) -> str:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    out = subprocess.run([sys.executable, str(ROOT / "examples" / name), "--device", "cpu"],
-                         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / name), "--device", "cpu",
+                          *args], capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     return out.stdout
 
@@ -31,3 +31,12 @@ def test_coded_regression_example_runs():
         line = next(ln for ln in out.splitlines() if ln.startswith(f"[{loss}] coded GD on cpu"))
         assert float(line.rsplit("accuracy=", 1)[1]) > 0.8
     assert "general-s2c2" in out
+
+
+def test_train_lm_example_runs_and_the_loss_improves(tmp_path):
+    """``examples/torch_train_lm.py`` for 12 steps (group 3 dead from step
+    10), into a fresh checkpoint directory: it runs to the end and the loss
+    improves, as ``examples/train_lm.py``'s does."""
+    out = _run("torch_train_lm.py", "--steps", "12", "--ckpt-dir", str(tmp_path / "ckpt"))
+    assert "[train] loss_improved=True" in out.splitlines()
+    assert "dead=[3]" in out and (tmp_path / "ckpt" / "step_00000011").is_dir()

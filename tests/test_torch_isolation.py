@@ -4,9 +4,9 @@
    or anything of the JAX package ``repro`` (an AST scan).
 2. Importing the port's modules leaves ``jax`` and ``repro`` out of
    ``sys.modules`` (a fresh interpreter).
-3. An entry point left at its default device raises where there is no card,
-   and the serving entry point refuses the encoder-decoder with ``SystemExit``,
-   as the JAX package's does.
+3. An entry point left at its default device raises where there is no card
+   (serving and training alike), and the serving entry point refuses the
+   encoder-decoder with ``SystemExit``, as the JAX package's does.
 4. A CUDA tensor that reaches ``ops`` without a built kernel library raises;
    it is never handed to the plain version.
 5. A run on the CPU launches no kernel: every counter stays at 0.
@@ -111,6 +111,35 @@ def test_serving_entry_points_default_to_the_card():
                  lambda: main(["--reduced"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_training_entry_point_defaults_to_the_card(tmp_path):
+    """``launch.train.main`` left at its default device raises where there
+    is no card, before it builds or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_training_modules_load_neither_jax_nor_repro():
+    """The training slice's modules are scanned above, and importing them
+    alone leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    names = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
+    modules = ["repro_torch.optim.optimizer", "repro_torch.checkpoint.checkpoint",
+               "repro_torch.runtime.train_loop", "repro_torch.launch.train"]
+    assert {m.replace(".", "/") + ".py" for m in modules} <= names
+    prog = ("import sys\n"
+            f"for m in {modules!r}: __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print('LOADED', bad)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
