@@ -230,14 +230,45 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         gradient of every parameter) under ``torch.profiler``: its kernels'
         time, launches and the device's idle share.
 
-The last lines are phase 10's, 9's, 8's, 7's and 6's records as JSON, the
-in-turn times as JSON, the per-kernel record as JSON (``ms``, ``plain_ms``
-and ``library_ms`` are device times; ``*call_ms`` the per-call times;
-``launches`` the main path's, ``cluster_launches`` the cluster phase's,
-``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
+11. the worker mesh and ``launch/``'s step builders at full width:
+    (a) the main path's (n, k) = (12, 10), D = 600,000, d = 2,048 float32,
+        C = 20 across a worker mesh (``make_worker_mesh(12,
+        device_type="cuda")``) of 12 spawned ranks that share the card over
+        gloo (NCCL refuses two ranks on one device): A made once in host
+        memory (a file-backed array each rank maps), each rank encoding its
+        own partition chunk by chunk (``mds_encode`` on ``G[w:w+1]``), then
+        10 iterations of phase 4's allocations (the predictor on the card
+        over ``controlled_traces(12, 30, 2, seed=7)``, here in the parent):
+        each rank's assigned chunks (``coded_matvec``), the all-gather of the
+        partials (through pinned host memory under gloo), the decode
+        (``mds_decode``), every rank's y within 1e-3 of a float64 product;
+        each rank's launches (each kernel above 0; ``mds_encode`` once a
+        chunk, ``mds_decode`` once an iteration, ``coded_matvec`` on the
+        stream design), rank 0's iteration median and the combine's share,
+        the ranks' peak allocations beside ``mesh_memory_reckoning`` and the
+        card's memory in use;
+    (b) ``build_train_step`` on zamba2-1.2b whole at ``train_4k``'s 4,096
+        tokens, its global batch of 256 cut to 8, ``grad_accum_for``'s
+        microbatches, ``cfg.optimizer``: 2 steps, every loss and gradient
+        norm finite, each step's time and the peak memory;
+    (c) ``build_prefill_step`` and ``build_decode_step`` on mistral-nemo-12b
+        whole in bfloat16, ``decode_32k``'s batch of 128 cut to 4 and its
+        context to a 2,048-token prompt, 16 greedy steps: the logits and
+        tokens bit for bit ``LM.prefill`` and ``LM.decode_step`` called
+        directly; then the parameters placed by ``param_shardings`` on a
+        (1, 1) mesh over a world-size-1 NCCL group, whose tokens must be the
+        same; (b) and (c) launch none of the four kernels (their counters
+        read 0), as the JAX package's step builders reach no Pallas kernel.
+
+The last lines are phase 11's, 10's, 9's, 8's, 7's and 6's records as JSON,
+the in-turn times as JSON, the per-kernel record as JSON (``ms``,
+``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the per-call
+times; ``launches`` the main path's, ``cluster_launches`` the cluster
+phase's, ``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
 point's, ``families_launches`` phase 8's three entry points',
 ``encdec_launches`` phase 9's coded head's, ``train_launches`` phase 10's,
-all 0) and the device line.
+all 0, ``mesh_launches`` phase 11 (a)'s, summed over the ranks, and for the
+predictor's kernel the parent's) and the device line.
 The record of ``coded_matvec``'s multi design that the cluster's
 ``matmul`` rounds launch is at a chunk's shape at B = 8, and its
 ``launches`` are the cluster phase's; the
@@ -354,6 +385,19 @@ SLSTM_BS = (2, 64)
 SLSTM_LONG_S = {False: 2_048, True: 256}
 SLSTM_BWD_REL = 1e-4                    # of each gradient's largest value
 PROFILED_MICROBATCHES = 2
+
+# phase 11, the worker mesh and the step builders: (a) the main path's
+# (n, k), D, d and C over N ranks that share the card over gloo, MESH_ITERS
+# of phase 4's allocations; (b) build_train_step on zamba2-1.2b whole at
+# train_4k's 4,096 tokens, its global batch of 256 cut to STEP_TRAIN_BATCH;
+# (c) build_prefill_step and build_decode_step on mistral-nemo-12b whole,
+# decode_32k's batch of 128 cut to STEP_SERVE_BATCH and its 32,768-token
+# context to a STEP_SERVE_PROMPT-token prompt
+MESH_ITERS, MESH_TIMEOUT = 10, 600
+MESH_SIZE_REDUCED = (4, 3, 6, 360, 16, 3)   # the CPU test's n, k, C, rows, cols, iterations
+STEP_TRAIN_ARCH, STEP_TRAIN_BATCH, STEP_TRAIN_STEPS = "zamba2-1.2b", 8, 2
+STEP_SERVE_ARCH, STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS = (
+    "mistral-nemo-12b", 4, 2_048, 16)
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -2719,6 +2763,419 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
     return launches, record
 
 
+# -- 11. the worker mesh and the step builders ------------------------------
+
+def mesh_memory_reckoning(rows: int, cols: int, n: int, k: int, chunks: int) -> dict:
+    """What phase 11 (a)'s ranks allocate on the card in all (GB), by the
+    port's code: each rank's coded partition, one chunk's k row slabs and
+    the encode's output for them, its padded partials, the gathered
+    partials of all n, y, and the decode's tables (CUDA contexts aside)."""
+    part_rows = -(-rows // (k * chunks)) * chunks
+    rpc = part_rows // chunks
+    per_rank = {"partition": part_rows * cols * 4, "slab": k * rpc * cols * 4,
+                "encoded_slab": rpc * cols * 4, "partials": chunks * rpc * 4,
+                "gathered": n * chunks * rpc * 4, "y": k * part_rows * 4}
+    out = {name: n * b / 1e9 for name, b in per_rank.items()}
+    # the slab and its encode are freed once the partition is whole
+    out["peak_per_rank"] = (per_rank["partition"] + per_rank["slab"]
+                            + per_rank["encoded_slab"]) / 1e9
+    out["total"] = n * out["peak_per_rank"]
+    return out
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 11 (a), in a process of its own: a gloo group of
+    ``world`` ranks sharing one card (NCCL refuses two ranks on one
+    device), the worker mesh, this rank's partition encoded from the host's
+    A, and the iterations of ``spec.json``'s allocations; writes
+    ``rank<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import coded_matmul as CM
+    from repro_torch.core.coding import MDSCode
+    from repro_torch.core.s2c2 import general_allocation
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    tmp = Path(tmp)
+    spec = json.loads((tmp / "spec.json").read_text())
+    dev = torch.device(spec["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'rendezvous'}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_worker_mesh(world, device_type=dev.type)
+        cm = CM.CodedMatvec(MDSCode(spec["n"], spec["k"]), spec["chunks"], device=dev,
+                            mesh=mesh)
+        combine: list = []
+        gather = CM._all_gather
+
+        def timed_gather(*args):
+            """The combine alone: the partials finished before, y's decode after."""
+            sync()
+            t0 = time.perf_counter()
+            out = gather(*args)
+            sync()
+            combine.append(time.perf_counter() - t0)
+            return out
+
+        CM._all_gather = timed_gather
+        a = torch.from_numpy(np.load(tmp / "a.npy", mmap_mode="c"))   # the host's one copy
+        xs = torch.from_numpy(np.load(tmp / "xs.npy")).to(dev)
+        yref = np.load(tmp / "yref.npy", mmap_mode="r")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        part = cm.shard(a)
+        sync()
+        encode_s = time.perf_counter() - t0
+        iter_s, errors = [], []
+        for it, speeds in enumerate(spec["speeds"]):
+            x = xs[:, it].contiguous()
+            dist.barrier()
+            t0 = time.perf_counter()              # plan (host) and apply
+            tables = cm.plan_tables(general_allocation(speeds, spec["k"], spec["chunks"]))
+            y = cm.apply(part, x, *tables)
+            sync()
+            iter_s.append(time.perf_counter() - t0)
+            want = yref[:, it]
+            got = y[:want.shape[0]].double().cpu().numpy()
+            if not np.isfinite(got).all():
+                raise RuntimeError(f"rank {rank}, iteration {it}: y is not finite")
+            errors.append(float(np.abs(got - want).max() / np.abs(want).max()))
+        dist.barrier()                       # every rank's memory is in place
+        card_used = None
+        if dev.type == "cuda" and rank == 0:
+            card_used = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+        peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        dist.barrier()
+        (tmp / f"rank{rank}.json").write_text(json.dumps({
+            "launches": ops.launch_counts(), "designs": ops.design_counts(),
+            "encode_s": encode_s, "iter_s": iter_s, "combine_s": combine, "rel_err": errors,
+            "peak_gb": peak, "card_used_mib": card_used, "rows": part.shape[0]}))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_iterations(dev, reduced: bool) -> tuple[dict, dict]:
+    """Phase 11 (a): the main path across a worker mesh of n = 12 ranks
+    that share the card over gloo, spawned here.  A is made once in host memory
+    (a file-backed array every rank maps), with its float64 products on the
+    card; the allocations are phase 4's (the predictor on the card over
+    ``controlled_traces(12, 30, 2, seed=7)``).  Returns the launches by
+    kernel (the ranks' summed, the predictor's in this process) and the
+    record."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import load_params
+    from repro_torch.core.predictor import SpeedPredictor
+    from repro_torch.core.traces import controlled_traces
+    from repro_torch.kernels import ops
+
+    n, k, chunks, rows, cols, iters = (MESH_SIZE_REDUCED if reduced
+                                       else (N, K, CHUNKS, ROWS, COLS, MESH_ITERS))
+    reckoned = mesh_memory_reckoning(rows, cols, n, k, chunks)
+    print("phase 11 (a): memory reckoned on the card: " + ", ".join(
+        f"{k} {v:.3f} GB" for k, v in reckoned.items()), flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    procs: list = []
+    try:
+        t0 = time.perf_counter()
+        a = np.lib.format.open_memmap(tmp / "a.npy", mode="w+", dtype=np.float32,
+                                      shape=(rows, cols))
+        gen = torch.Generator(device=dev).manual_seed(11)
+        xs = torch.randn(cols, iters, generator=gen, device=dev)
+        yref = torch.empty(rows, iters, dtype=torch.float64, device=dev)
+        slab = 60_000
+        for r0 in range(0, rows, slab):
+            blk = torch.randn(min(slab, rows - r0), cols, generator=gen, device=dev)
+            a[r0:r0 + blk.shape[0]] = blk.cpu().numpy()
+            yref[r0:r0 + blk.shape[0]] = blk.double() @ xs.double()
+        a.flush()
+        del a, blk
+        np.save(tmp / "xs.npy", xs.cpu().numpy())
+        np.save(tmp / "yref.npy", yref.cpu().numpy())
+        del xs, yref
+        ops.reset_launch_counts()
+        predictor = SpeedPredictor(n, load_params(device=dev), device=dev)
+        traces = controlled_traces(n, ITERS, n_stragglers=2, seed=7)
+        speeds = []
+        for it in range(iters):
+            speeds.append(np.asarray(predictor.predict(), dtype=np.float64).tolist())
+            predictor.observe(traces[it])
+        predictor_launches = ops.launch_counts()
+        del predictor
+        (tmp / "spec.json").write_text(json.dumps({"device": dev.type, "n": n, "k": k,
+                                                   "chunks": chunks, "speeds": speeds}))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        made_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, n, str(tmp))) for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0))
+        ranks_s = time.perf_counter() - t0
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        if alive:
+            raise RuntimeError(f"phase 11 (a): ranks {alive} still running after "
+                               f"{MESH_TIMEOUT} s")
+        failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
+        if failed:
+            raise RuntimeError(f"phase 11 (a): ranks exited with {failed}")
+        results = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(n)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = max(max(r["rel_err"]) for r in results)
+    if worst > REL_ERR_LIMIT:
+        raise RuntimeError(f"phase 11 (a): relative error {worst:.3e} > {REL_ERR_LIMIT}")
+    for r, res in enumerate(results):
+        got = res["launches"]
+        print(f"phase 11 (a) rank {r}: launches {got}; coded_matvec designs "
+              f"{res['designs']['coded_matvec']}; encode {res['encode_s'] * 1e3:.1f} ms; "
+              f"peak {res['peak_gb']:.3f} GB", flush=True)
+        if dev.type == "cuda":
+            expect(f"phase 11 (a) rank {r}: mds_encode launches (one a chunk)",
+                   got["mds_encode"], chunks)
+            expect(f"phase 11 (a) rank {r}: mds_decode launches (one an iteration)",
+                   got["mds_decode"], iters)
+            if not 0 < got["coded_matvec"] <= iters:
+                raise RuntimeError(f"phase 11 (a) rank {r}: coded_matvec launched "
+                                   f"{got['coded_matvec']} times in {iters} iterations")
+            expect(f"phase 11 (a) rank {r}: coded_matvec designs",
+                   res["designs"]["coded_matvec"],
+                   {"stream": got["coded_matvec"], "split": 0, "multi": 0, "general": 0})
+    launches = {name: sum(r["launches"][name] for r in results) for name in KERNELS}
+    launches["lstm_cell"] += predictor_launches["lstm_cell"]
+    first = results[0]
+    iter_med = statistics.median(first["iter_s"])
+    combine_med = statistics.median(first["combine_s"])
+    card_gb = (int(first["card_used_mib"]) * 2**20 / 1e9 if first["card_used_mib"] is not None
+               else None)
+    alloc_gb = sum(r["peak_gb"] for r in results)
+    print(f"phase 11 (a): {n} ranks over gloo on one card, {rows:,} x {cols:,}, {iters} "
+          f"iterations: rank 0's median {iter_med * 1e3:.3f} ms (min "
+          f"{min(first['iter_s']) * 1e3:.3f}, max {max(first['iter_s']) * 1e3:.3f}), the "
+          f"combine {combine_med * 1e3:.3f} ms ({combine_med / iter_med:.1%}); worst relative "
+          f"error {worst:.3e}; encode (rank 0) {first['encode_s']:.2f} s; the ranks' peak "
+          f"allocations {alloc_gb:.3f} GB in all against {reckoned['total']:.3f} reckoned; the "
+          f"card's memory in use {card_gb} GB with the {n} contexts; A made in {made_s:.1f} s, "
+          f"the ranks ran {ranks_s:.1f} s", flush=True)
+    record = {"ranks": n, "k": k, "chunks": chunks, "rows": rows, "cols": cols, "iters": iters,
+              "rank0_iter_ms": [t * 1e3 for t in first["iter_s"]],
+              "rank0_median_ms": iter_med * 1e3, "rank0_combine_median_ms": combine_med * 1e3,
+              "combine_share": combine_med / iter_med,
+              "iter_median_ms_by_rank": [statistics.median(r["iter_s"]) * 1e3 for r in results],
+              "encode_s_by_rank": [r["encode_s"] for r in results], "worst_rel_err": worst,
+              "peak_gb_by_rank": [r["peak_gb"] for r in results], "peak_gb_sum": alloc_gb,
+              "card_used_gb": card_gb, "reckoned_gb": reckoned,
+              "launches_by_rank": [r["launches"] for r in results], "made_s": made_s,
+              "ranks_s": ranks_s}
+    return launches, record
+
+
+def step_train(dev, reduced: bool) -> dict:
+    """Phase 11 (b): ``build_train_step`` on zamba2-1.2b whole at
+    ``train_4k``'s sequence, the global batch cut to STEP_TRAIN_BATCH,
+    ``grad_accum_for``'s microbatches, ``cfg.optimizer``; STEP_TRAIN_STEPS
+    steps, every loss and gradient norm finite."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, shape_by_name
+    from repro_torch.convert import group
+    from repro_torch.launch.steps import build_train_step, grad_accum_for
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizer import make_optimizer
+
+    cfg = get_config(STEP_TRAIN_ARCH)
+    shape = dataclasses.replace(shape_by_name("train_4k"), global_batch=STEP_TRAIN_BATCH)
+    if reduced:
+        cfg = cfg.reduced()
+        shape = dataclasses.replace(shape, seq_len=64, global_batch=4)
+    accum = grad_accum_for(cfg, shape)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    opt = make_optimizer(cfg.optimizer, lr=1e-4)      # build_train_step's default
+    state = opt.init(group(dict(model.named_parameters()), model))
+    step = build_train_step(cfg, shape, opt=opt)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    losses, norms, step_s = [], [], []
+    for i in range(STEP_TRAIN_STEPS):
+        toks = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
+                             generator=gen, device=dev, dtype=torch.int32)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(model, state, i, {"tokens": toks, "labels": toks})
+        losses.append(float(metrics["loss"]))          # synchronises
+        norms.append(float(metrics["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise RuntimeError(f"phase 11 (b): losses {losses}, grad norms {norms} not all finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    print(f"phase 11 (b): build_train_step on {cfg.name}, {shape.global_batch} x "
+          f"{shape.seq_len} tokens in {accum} microbatches, {opt.name}: losses "
+          f"{[round(v, 4) for v in losses]}, grad norms {[round(v, 4) for v in norms]}, steps "
+          f"{[round(t, 3) for t in step_s]} s; peak memory {peak:.2f} GB", flush=True)
+    del model, state
+    return {"arch": cfg.name, "batch": shape.global_batch, "seq": shape.seq_len,
+            "accum": accum, "optimizer": opt.name, "losses": losses, "grad_norms": norms,
+            "step_s": step_s, "peak_gb": peak}
+
+
+def step_serve(dev, reduced: bool) -> dict:
+    """Phase 11 (c): ``build_prefill_step`` and ``build_decode_step`` on
+    mistral-nemo-12b whole in bfloat16, STEP_SERVE_BATCH prompts of
+    STEP_SERVE_PROMPT tokens and STEP_SERVE_STEPS greedy steps: bit for bit
+    ``LM.prefill`` and ``LM.decode_step`` called directly; then the same
+    with the parameters placed by ``param_shardings`` on a (1, 1) mesh over
+    a world-size-1 NCCL group (gloo on the CPU), whose tokens must be the
+    unplaced run's."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step, shard_model
+    from repro_torch.models import build_model
+
+    cfg = get_config(STEP_SERVE_ARCH)
+    b, prompt, steps = STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS
+    if reduced:
+        cfg, prompt, steps = cfg.reduced(), 32, 4
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen, device=dev,
+                           dtype=torch.int32)
+    max_seq = prompt + steps
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+
+    def greedy(run_prefill, run_decode) -> tuple:
+        """(the prefill's logits, the tokens of every step, the prefill's
+        seconds, each step's seconds)."""
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = run_prefill()
+        sync()
+        prefill_s = time.perf_counter() - t0
+        full = logits.full_tensor() if hasattr(logits, "full_tensor") else logits
+        tok = torch.argmax(full, -1).to(torch.int32)[:, None]
+        toks, step_s = [tok], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            tok, caches = run_decode(tok, caches, prompt + i)
+            tok = tok.full_tensor() if hasattr(tok, "full_tensor") else tok
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            toks.append(tok)
+        return full, torch.cat(toks, 1), prefill_s, step_s
+
+    def direct_decode(tok, caches, pos):
+        logits, caches = model.decode_step(tok, caches, pos)
+        return torch.argmax(logits, -1).to(torch.int32)[:, None], caches
+
+    def step_decode(tok, caches, pos):
+        return decode(model, {"token": tok, "caches": caches, "pos": pos})
+
+    direct = greedy(lambda: model.prefill(tokens, max_seq=max_seq), direct_decode)
+    built = greedy(lambda: prefill(model, {"tokens": tokens}, max_seq=max_seq), step_decode)
+    if not torch.equal(built[0], direct[0]):
+        raise RuntimeError("phase 11 (c): build_prefill_step's logits are not LM.prefill's")
+    if not torch.equal(built[1], direct[1]):
+        raise RuntimeError("phase 11 (c): build_decode_step's tokens are not LM.decode_step's")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    # the parameters placed on a (1, 1) mesh
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+            shard_model(model, mesh)
+            placed = greedy(lambda: prefill(model, {"tokens": tokens}, max_seq=max_seq),
+                            step_decode)
+        finally:
+            dist.destroy_process_group()
+    if not torch.equal(placed[1], direct[1]):
+        raise RuntimeError("phase 11 (c): the tokens on the (1, 1) mesh are not the unplaced "
+                           "run's")
+    placed_logits_err = float((placed[0].float() - direct[0].float()).abs().max())
+    print(f"phase 11 (c): build_prefill_step + build_decode_step on {cfg.name}, {b} x {prompt} "
+          f"tokens then {steps} greedy steps: bit for bit LM.prefill and LM.decode_step; "
+          f"prefill {built[2]:.3f} s (direct {direct[2]:.3f}), a step's median "
+          f"{statistics.median(built[3]) * 1e3:.3f} ms (direct "
+          f"{statistics.median(direct[3]) * 1e3:.3f}); on the (1, 1) mesh the same tokens, "
+          f"the prefill's logits within {placed_logits_err:.3e}, prefill {placed[2]:.3f} s, a "
+          f"step's median {statistics.median(placed[3]) * 1e3:.3f} ms; peak memory "
+          f"{peak:.2f} GB", flush=True)
+    del model
+    return {"arch": cfg.name, "batch": b, "prompt": prompt, "steps": steps,
+            "tokens_equal": True, "prefill_s": built[2], "direct_prefill_s": direct[2],
+            "step_ms": [t * 1e3 for t in built[3]], "direct_step_ms": [t * 1e3 for t in direct[3]],
+            "mesh_prefill_s": placed[2], "mesh_step_ms": [t * 1e3 for t in placed[3]],
+            "mesh_prefill_logits_max_abs_err": placed_logits_err, "peak_gb": peak}
+
+
+def mesh_steps_phase(dev, reduced: bool = False) -> tuple:
+    """Phase 11: (a) the worker mesh (:func:`mesh_iterations`); (b) and (c)
+    the step builders at full width (:func:`step_train`,
+    :func:`step_serve`), which launch none of the four kernels, as the JAX
+    package's reach no Pallas kernel: their counters must stay at 0.
+    Returns (a)'s launches by record name, and the phase's record."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    launches, record = mesh_iterations(dev, reduced)
+    record = {"mesh": record, "mesh_s": time.perf_counter() - t0}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    record["train_step"] = step_train(dev, reduced)
+    record["train_step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["serve_steps"] = step_serve(dev, reduced)
+    record["serve_steps_s"] = time.perf_counter() - t0
+    counts, designs = ops.launch_counts(), ops.design_counts()
+    expect("phase 11 (b), (c): kernel launches of the step builders", counts,
+           dict.fromkeys(counts, 0))
+    expect("phase 11 (b), (c): designs launched by the step builders", designs,
+           {k: dict.fromkeys(v, 0) for k, v in designs.items()})
+    record["step_launches"] = counts
+    return launches, record
+
+
 def main() -> int:
     import torch
 
@@ -3273,6 +3730,15 @@ def main() -> int:
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["train_launches"] = train_counts.get(rec["name"], 0)
 
+    # -- 11. the worker mesh and the step builders -----------------------------
+    t0 = time.perf_counter()
+    mesh_counts, meshed = mesh_steps_phase(dev)
+    meshed["phase_s"] = time.perf_counter() - t0
+    print(f"mesh and steps phase: {meshed['phase_s']:.1f} s", flush=True)
+    for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
+        rec["mesh_launches"] = mesh_counts.get(rec["name"], 0)
+
+    print(json.dumps({"mesh_steps": meshed}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"encdec": encdec}))
     print(json.dumps({"families": families}))

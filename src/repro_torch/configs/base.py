@@ -67,8 +67,8 @@ class ArchConfig:
     # dry-run tuning (per-shape grad accumulation chosen in launch/steps.py)
     grad_accum_train: int = 8
     # sequence-parallel activations at scan boundaries (SP): shards the
-    # saved layer-boundary activations over the model axis of the JAX
-    # package's mesh; read by no code of the single-card port yet
+    # saved layer-boundary activations over the model axis of a mesh
+    # (LM.forward_train's constrain at each period's end)
     seq_shard_train: bool = False
 
     def __post_init__(self):

@@ -4,6 +4,12 @@
   the coded lm_head's validation.
 * :mod:`repro_torch.launch.train` — coded data-parallel training of any
   arch, with faults and restarts.
+* :mod:`repro_torch.launch.mesh`, :mod:`~repro_torch.launch.partition`,
+  :mod:`~repro_torch.launch.sharding` — device meshes on
+  ``torch.distributed`` and the logical-axis rules that place parameters,
+  batches and caches on them as DTensors.
+* :mod:`repro_torch.launch.steps` — the train, prefill and decode step
+  builders and each cell's abstract inputs and shardings.
 
 Nothing is imported here, so importing one module loads only what it needs.
 """

@@ -34,6 +34,8 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.partition import constrain, gathered
+from repro_torch.launch.partition import local as plain
 from repro_torch.models import layers as L
 from repro_torch.models.lm import _module, remat_apply
 from repro_torch.models.params import ParamSpec, cast_specs, initialize
@@ -129,7 +131,7 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         x = frames.to(self.cache_dtype()) @ self.frontend_proj
         for p in self.enc:
-            x = remat_apply(_enc_block, cfg.remat, p, x, cfg)
+            x = constrain(remat_apply(_enc_block, cfg.remat, p, x, cfg), ("batch", None, None))
         return L.apply_norm(self.enc_norm, x)
 
     # -- decoder (training) ----------------------------------------------------
@@ -140,9 +142,10 @@ class EncDecLM(nn.Module):
         enc_out = self.encode(batch["frames"])
         x = L.embed_apply(self.embed, batch["tokens"])
         for p in self.dec:
-            x = remat_apply(_dec_block, cfg.remat, p, x, enc_out, cfg)
+            x = constrain(remat_apply(_dec_block, cfg.remat, p, x, enc_out, cfg),
+                          ("batch", None, None))
         x = L.apply_norm(self.dec_norm, x)
-        return L.head_apply(self.embed, x, cfg).float()
+        return constrain(L.head_apply(self.embed, x, cfg).float(), ("batch", None, "vocab"))
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Causal LM loss of the decoder's tokens."""
@@ -150,7 +153,8 @@ class EncDecLM(nn.Module):
         tgt = batch["labels"][:, 1:]
         lg = logits[:, :-1]
         lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
+        # DTensor's gather along a vocab-sharded dim fails: gather the logits first
+        gold = torch.gather(gathered(lg), -1, tgt[..., None].long())[..., 0]
         return (lse - gold).mean()
 
     # -- serving ---------------------------------------------------------------
@@ -182,10 +186,11 @@ class EncDecLM(nn.Module):
         s = tokens.shape[1]
         caches: List[Any] = []
         for p in self.dec:
+            x = constrain(x, ("batch", None, None))
             h = L.apply_norm(p["norm1"], x)
             x = x + L.attn_apply(p["self_attn"], h, cfg, causal=True, local=False)
-            k_self, v_self = L.attn_prefill_kv(p["self_attn"], h, cfg)
-            k_x, v_x = L.cross_kv(p["cross_attn"], enc_out, cfg)
+            k_self, v_self = map(plain, L.attn_prefill_kv(p["self_attn"], h, cfg))
+            k_x, v_x = map(plain, L.cross_kv(p["cross_attn"], enc_out, cfg))   # plain caches
             x = x + L.cross_attn_apply(p["cross_attn"], L.apply_norm(p["norm_x"], x), k_x, v_x,
                                        cfg)
             x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
@@ -214,6 +219,7 @@ class EncDecLM(nn.Module):
         tables = L.rope_tables(torch.tensor([pos], device=x.device), cfg.head_dim,
                                cfg.rope_theta)
         for p, cache in zip(self.dec, caches):
+            x = constrain(x, ("batch", None, None))
             y, _ = L.attn_decode(p["self_attn"], L.apply_norm(p["norm1"], x), cfg,
                                  cache["self"], pos, local=False, tables=tables)
             x = x + y

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.partition import gathered, on_replicated
+from repro_torch.launch.partition import local as plain
 from repro_torch.models.params import ParamSpec
 
 Params = Mapping[str, torch.Tensor]
@@ -152,6 +154,7 @@ def _attend_block(q, k, kpos, qpos, causal: bool, window: int,
     return torch.where(mask[None, None], logits, torch.full_like(logits, -1e30))
 
 
+@on_replicated
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0,
@@ -219,6 +222,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(blocks, dim=2).transpose(1, 2)     # (B, S, H, hd)
 
 
+@on_replicated
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: int, window: int = 0, softcap: float = 0.0,
                      rotating: bool = False) -> torch.Tensor:
@@ -300,8 +304,8 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Dict[str, to
     slot = (pos % t) if rotating else pos
     if not 0 <= slot < t:
         raise ValueError(f"position {pos} is outside a cache of {t}")
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["k"][:, slot] = plain(k)[:, 0].to(cache["k"].dtype)    # caches are plain tensors
+    cache["v"][:, slot] = plain(v)[:, 0].to(cache["v"].dtype)
     window = cfg.sliding_window if local else 0
     out = decode_attention(q, cache["k"], cache["v"], pos, window=window,
                            softcap=cfg.logit_softcap, rotating=rotating)
@@ -389,7 +393,8 @@ def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["embedding"])
+    # DTensor's rule for a lookup in a vocab-sharded table fails: gather the table
+    return F.embedding(tokens, gathered(p["embedding"]))
 
 
 def head_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

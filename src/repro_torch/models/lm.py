@@ -14,8 +14,10 @@ attention, internvl2-26b with the ``vit_stub`` projector), ``attn_moe``
 the layer period and scans over periods; the port runs the same layers in
 order, and ``repro_torch.convert.lm_params_from_jax`` unstacks the JAX
 package's tree (``slots/s{i}[p]`` is layer ``p·plen + i``, ``rem/r{j}``
-the tail).  The JAX package's sharding constraints are the identity
-without a mesh, so the single-card port has none.
+the tail).  ``launch.partition.constrain`` is called where the JAX
+package calls it (the batch axis at every layer, logits on ``vocab``, the
+``seq_sp`` rule at each period's end); it is the identity without a mesh
+and for plain tensors, and redistributes DTensors on one.
 
 Paths:
 
@@ -45,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.partition import constrain, gathered
+from repro_torch.launch.partition import local as plain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -256,11 +260,18 @@ class LM(nn.Module):
     def forward_train(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Returns logits (B, S_total, vocab_padded), float32."""
         cfg = self.cfg
-        x = self._embed_inputs(batch)
-        for slot, p in zip(self.slots, self.layers):
+        period, n_periods, _ = period_layout(cfg)
+        x = constrain(self._embed_inputs(batch), ("batch", None, None))
+        sp_rules = {"seq_sp": "model" if cfg.seq_shard_train else None}
+        for l, (slot, p) in enumerate(zip(self.slots, self.layers)):
             x = remat_apply(block_apply, cfg.remat, p, x, cfg, slot, self.shared_attn)
+            if l < n_periods * len(period) and (l + 1) % len(period) == 0:
+                # a period's end (the JAX package's scan carry): batch over
+                # (pod, data), optionally the sequence over model
+                x = constrain(x, ("batch", "seq_sp", None), sp_rules)
         x = L.apply_norm(self.final_norm, x)
-        return L.head_apply(self.embed, x, cfg).float()
+        logits = L.head_apply(self.embed, x, cfg).float()
+        return constrain(logits, ("batch", None, "vocab"))
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Causal LM loss on the text tokens (image prefix excluded)."""
@@ -270,7 +281,8 @@ class LM(nn.Module):
         tgt = batch["labels"][:, 1:]
         lg = logits[:, :-1]
         lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
+        # DTensor's gather along a vocab-sharded dim fails: gather the logits first
+        gold = torch.gather(gathered(lg), -1, tgt[..., None].long())[..., 0]
         return (lse - gold).mean()
 
     # -- caches ---------------------------------------------------------------
@@ -317,11 +329,12 @@ class LM(nn.Module):
         updated in place.
         """
         cfg = self.cfg
-        x = L.embed_apply(self.embed, token)
+        x = constrain(L.embed_apply(self.embed, token), ("batch", None, None))
         tables = L.rope_tables(torch.tensor([pos], device=x.device), cfg.head_dim,
                                cfg.rope_theta)
         shared_p = self.shared_attn
         for slot, p, cache in zip(self.slots, self.layers, caches):
+            x = constrain(x, ("batch", None, None))
             if slot.shared_attn and shared_p is not None:
                 y, _ = L.attn_decode(shared_p["attn"], L.apply_norm(shared_p["norm"], x), cfg,
                                      cache["shared"], pos, local=False, tables=tables)
@@ -348,7 +361,7 @@ class LM(nn.Module):
         full length, padded to ``max_seq``, or, for a local layer past its
         window, the last ``window`` keys in rotating layout."""
         cfg = self.cfg
-        k, v = L.attn_prefill_kv(p, h, cfg)
+        k, v = map(plain, L.attn_prefill_kv(p, h, cfg))     # plain tensors, as init_cache's
         if local and cfg.sliding_window < s:
             w = cfg.sliding_window
             # rotating layout: last w keys at slots (pos % w)
@@ -374,11 +387,12 @@ class LM(nn.Module):
         batch = {"tokens": tokens}
         if image_embeds is not None:
             batch["image_embeds"] = image_embeds
-        x = self._embed_inputs(batch)
+        x = constrain(self._embed_inputs(batch), ("batch", None, None))
         s = x.shape[1]
         shared_p = self.shared_attn
         caches: List[Any] = []
         for slot, p in zip(self.slots, self.layers):
+            x = constrain(x, ("batch", None, None))
             entry: Dict[str, Any] = {}
             if slot.shared_attn and shared_p is not None:
                 h = L.apply_norm(shared_p["norm"], x)

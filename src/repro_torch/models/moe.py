@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.partition import on_replicated
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["MOE_SEGMENT", "moe_specs", "moe_apply", "route", "capacity", "load_balancing_loss"]
@@ -61,6 +62,11 @@ def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d), top-k routed experts with capacity, in
     segments of at most ``MOE_SEGMENT`` positions."""
+    return _moe_segments(x, cfg, **p)
+
+
+@on_replicated    # DTensor cannot propagate the dispatch's index operations
+def _moe_segments(x: torch.Tensor, cfg: ArchConfig, **p) -> torch.Tensor:
     b, s, d = x.shape
     if s <= MOE_SEGMENT:
         return _moe_dispatch(p, x, cfg)

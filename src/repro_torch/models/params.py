@@ -5,9 +5,10 @@ parameters as a nested dict (and, for the LM's layers, a list) of
 :class:`ParamSpec` (shape, logical axes, dtype, initializer).  From the
 spec tree come ``initialize(specs, generator, device)`` (real tensors
 drawn from an explicit ``torch.Generator``, or empty ones on the ``meta``
-device), ``param_count`` and ``tree_bytes``.  The JAX package's
-``abstract`` and ``logical_axes`` feed its mesh and come with the port of
-``launch/``; the axes are kept in every spec for them.
+device), ``abstract(specs)`` (``meta`` tensors of each spec's shape and
+dtype, the JAX package's ``ShapeDtypeStruct``s), ``logical_axes(specs)``
+(the axes tree that :mod:`repro_torch.launch.sharding` maps onto a mesh),
+``param_count`` and ``tree_bytes``.
 
 The initializers follow the JAX package's rules (``"normal"`` × scale,
 ``"scaled_normal"`` by fan-in = ``shape[-2]``, both sampled in float32 and
@@ -26,7 +27,8 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamSpec", "initialize", "cast_specs", "param_count", "tree_bytes"]
+__all__ = ["ParamSpec", "abstract", "initialize", "logical_axes", "cast_specs", "param_count",
+           "tree_bytes"]
 
 Initializer = str  # "normal" | "zeros" | "ones" | "scaled_normal"
 
@@ -67,6 +69,17 @@ def _leaves(tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, ParamSpec]]:
             yield from _leaves(v, path + (i,))
     else:
         raise TypeError(f"not a spec tree: {type(tree).__name__}")
+
+
+def abstract(specs) -> Any:
+    """Spec tree -> ``meta`` tensors of the specs' shapes and dtypes (no
+    allocation)."""
+    return _tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
+def logical_axes(specs) -> Any:
+    """Spec tree -> the tree of each spec's logical axes."""
+    return _tree_map(lambda s: s.axes, specs)
 
 
 def _init_one(spec: ParamSpec, generator: torch.Generator,

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.partition import constrain, on_replicated
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["CHUNK", "mamba_specs", "mamba_apply", "mamba_init_state", "mamba_decode",
@@ -43,6 +44,8 @@ Params = Mapping[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
 
 CHUNK = 128
+# DTensor has no sharding rule for logsigmoid's backward: run it on gathered values
+_logsigmoid = on_replicated(F.logsigmoid)
 NEG = -1e30         # the stabilisers' start: finite, so NEG - NEG is 0, not NaN
 
 
@@ -247,7 +250,7 @@ def _mlstm_inputs(p: Params, x: torch.Tensor, cfg: ArchConfig):
     k = (xi @ p["wk"]).reshape(*lead, nh, hd).float() / math.sqrt(hd)
     v = (xi @ p["wv"]).reshape(*lead, nh, hd).float()
     log_i = (xi @ p["w_i"]).float()
-    log_f = F.logsigmoid((xi @ p["w_f"]).float() + p["f_bias"])    # <= 0
+    log_f = _logsigmoid((xi @ p["w_f"]).float() + p["f_bias"])     # <= 0
     return q, k, v, log_i, log_f, z
 
 
@@ -387,7 +390,7 @@ def _slstm_step(r32: torch.Tensor, bias: torch.Tensor, carry, xw: torch.Tensor):
     zi, fi, ii, oi = torch.chunk(gates, 4, dim=-1)
     z = torch.tanh(zi)
     o = torch.sigmoid(oi)
-    log_f = F.logsigmoid(fi)
+    log_f = _logsigmoid(fi)
     m_new = torch.maximum(log_f + m_prev, ii)
     i_g = torch.exp(ii - m_new)
     f_g = torch.exp(log_f + m_prev - m_new)
@@ -418,7 +421,9 @@ def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, return_state: bool 
     bsz, s, d = x.shape
     nh = cfg.num_heads
     hd = d // nh
-    xw = (x @ p["w_gates"]).float().reshape(bsz, s, nh, 4 * hd)
+    # the gate pre-activations gathered once before the sequential scan
+    xw = constrain((x @ p["w_gates"]).float(), ("batch", None, None))
+    xw = xw.reshape(bsz, s, nh, 4 * hd)
     hs, carry = _slstm_scan(p["r_gates"].float(), p["b_gates"].reshape(nh, 4 * hd), xw)
     out = hs.reshape(bsz, s, d).to(x.dtype) @ p["out_proj"]
     if return_state:

@@ -246,3 +246,60 @@ def test_cpu_run_launches_no_kernel():
     assert ops.design_counts() == {"coded_matvec": {"stream": 0, "split": 0, "multi": 0,
                                                     "general": 0},
                                    "lstm_cell": {"sequence": 0, "cell": 0}}
+
+
+def test_mesh_modules_load_neither_jax_nor_repro():
+    """The mesh slice's modules are scanned above, and importing them alone
+    leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    names = {str(p.relative_to(ROOT / "src")) for p in PORT_FILES[:-1]}
+    modules = ["repro_torch.launch.mesh", "repro_torch.launch.partition",
+               "repro_torch.launch.sharding", "repro_torch.launch.steps",
+               "repro_torch.core.coded_matmul", "repro_torch.models.params"]
+    assert {m.replace(".", "/") + ".py" for m in modules} <= names
+    prog = ("import sys\n"
+            f"for m in {modules!r}: __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print('LOADED', bad)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+MESH_MISUSE = """
+import pytest, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.core.coded_matmul import CodedMatvec
+from repro_torch.core.coding import MDSCode
+from repro_torch.launch.mesh import make_production_mesh, make_worker_mesh
+for make, n in [(make_production_mesh, 256), (lambda: make_production_mesh(multi_pod=True), 512),
+                (lambda: make_worker_mesh(4), 4)]:
+    with pytest.raises(ValueError, match=f"needs {n} ranks; there is no initialised"):
+        make()
+dist.init_process_group("fake", store=FakeStore(), rank=1, world_size=3)
+for make, n in [(make_production_mesh, 256), (lambda: make_production_mesh(multi_pod=True), 512),
+                (lambda: make_worker_mesh(4), 4)]:
+    with pytest.raises(ValueError, match=f"needs {n} ranks; the process group has 3"):
+        make()
+mesh = make_worker_mesh(3)
+with pytest.raises(ValueError, match="has size 3 but code.n=4"):
+    CodedMatvec(MDSCode(4, 3), 6, device="cpu", mesh=mesh)
+with pytest.raises(ValueError, match="no axis 'rows'"):
+    CodedMatvec(MDSCode(3, 2), 6, device="cpu", mesh=mesh, axis="rows")
+assert CodedMatvec(MDSCode(3, 2), 6, device="cpu", mesh=mesh).rank == 1
+dist.destroy_process_group()
+print("MISUSE_OK")
+"""
+
+
+def test_mesh_builders_and_coded_matvec_refuse_a_wrong_group():
+    """No group, or a group of another size, raises ``ValueError`` naming
+    both numbers, for the production and worker meshes (no smaller mesh, no
+    single process in its place); a ``CodedMatvec`` whose mesh axis is not
+    ``code.n`` wide raises.  A fresh interpreter: the group is global."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", MESH_MISUSE], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "MISUSE_OK" in out.stdout
