@@ -207,12 +207,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (a) xlstm-125m whole (12 layers, 9 mLSTM and 3 sLSTM, d_model 768,
         vocab 50,304, random from seed 0) with ``examples/train_lm.py``'s
         flags without ``--reduced``: coded DP over 8 groups tolerating 2, group
-        3 killed at step 10, batch 16, seq 48, 20 steps into a temporary
-        checkpoint directory (24 microbatches a step); every loss finite
-        and ``loss_improved=True`` printed; then ``main`` again with 24
-        steps, which must resume from the step-19 checkpoint and run the 4
-        steps left; each step's time (the card synchronised at its start)
-        and the peak memory;
+        3 killed at step 10, batch 16, seq 48, 15 steps into a temporary
+        checkpoint directory (24 microbatches a step), group 3 dead in
+        exactly the 5 steps 10-14; every loss finite and
+        ``loss_improved=True`` printed; then ``main`` again with 18 steps,
+        which must resume from the step-14 checkpoint and run the 3 steps
+        left; each step's time (the card synchronised at its start) and
+        the peak memory;
     (b) zamba2-1.2b whole (38 Mamba-2 layers and the shared attention
         block, 1.17 B parameters) for 3 coded AdamW steps over 8 groups,
         its peak memory beside the reckoning of the JAX package's
@@ -260,7 +261,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         same; (b) and (c) launch none of the four kernels (their counters
         read 0), as the JAX package's step builders reach no Pallas kernel.
 
-The last lines are phase 11's, 10's, 9's, 8's, 7's and 6's records as JSON,
+12. the dry-run, the roofline and the cluster demo:
+    (a) ``python -m repro_torch.launch.dryrun`` in three subprocesses on
+        the host (the card hidden from them), started together and
+        collected after (b) and (c): zamba2-1.2b × ``train_4k`` × pod at two
+        microbatches (``REPRO_GRAD_ACCUM=2``, so the step splits the
+        gathered batch), mistral-nemo-12b ×
+        ``decode_32k`` × pod and zamba2-1.2b × ``decode_32k`` × multipod,
+        each on a ``fake`` group of 256 or 512 ranks, each record ``ok``
+        with every key of the JAX package's and printed;
+    (b) phase 11 (b)'s train step and (c)'s decode step again, once each
+        under ``roofline.StepCounter`` on the card's tensors (one rank):
+        the ``RooflineResult`` with the H100's data-sheet constants beside
+        phase 11's medians (the bound, its term, measured over bound); then
+        the dry-run of that decode cell on a (1, 1) mesh of a one-rank
+        ``fake`` group, its peak resident bytes beside the card's
+        ``max_memory_allocated`` over the step;
+    (c) ``examples/torch_cluster_demo.py`` on the card, its launches
+        counted from 0 (``coded_matvec`` on the stream and multi designs,
+        the predictor's sequence kernel, no encode or decode launch), the
+        first launch of each design and the first window kept and held
+        against their plain versions, each within DEMO_HELD_REL of the plain
+        result's largest value.
+
+The last lines are phase 12's, 11's, 10's, 9's, 8's, 7's and 6's records as JSON,
 the in-turn times as JSON, the per-kernel record as JSON (``ms``,
 ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the per-call
 times; ``launches`` the main path's, ``cluster_launches`` the cluster
@@ -268,7 +292,8 @@ phase's, ``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
 point's, ``families_launches`` phase 8's three entry points',
 ``encdec_launches`` phase 9's coded head's, ``train_launches`` phase 10's,
 all 0, ``mesh_launches`` phase 11 (a)'s, summed over the ranks, and for the
-predictor's kernel the parent's) and the device line.
+predictor's kernel the parent's, ``demo_launches`` phase 12 (c)'s) and the
+device line.
 The record of ``coded_matvec``'s multi design that the cluster's
 ``matmul`` rounds launch is at a chunk's shape at B = 8, and its
 ``launches`` are the cluster phase's; the
@@ -378,8 +403,12 @@ ENCDEC_CONTEXT = 2_048          # frames and prompt tokens of (b)
 # SLSTM_LONG_S (the reduced config's, the CPU test's, shorter)
 TRAIN_ARCH = "xlstm-125m"
 TRAIN_BIG = "zamba2-1.2b"
-TRAIN_STEPS = (20, 24, 16, 48)          # steps, steps after the restart, batch, seq
-TRAIN_STEPS_REDUCED = (11, 13, 8, 16)   # the CPU test's
+# (15 steps hold the loop's whole 5-step dead window, 10-14, before the
+# checkpoint; a restart to 18 resumes 3; 20 and 24 took the phase 500 s of
+# a 1,200 s script on a slow host)
+TRAIN_STEPS = (15, 18, 16, 48)          # steps, steps after the restart, batch, seq
+TRAIN_STEPS_REDUCED = (15, 18, 8, 16)   # the CPU test's
+DEAD_STEPS = 5                          # train_loop.train's window for a killed group
 BIG_STEPS = 3
 SLSTM_BS = (2, 64)
 SLSTM_LONG_S = {False: 2_048, True: 256}
@@ -398,6 +427,22 @@ MESH_SIZE_REDUCED = (4, 3, 6, 360, 16, 3)   # the CPU test's n, k, C, rows, cols
 STEP_TRAIN_ARCH, STEP_TRAIN_BATCH, STEP_TRAIN_STEPS = "zamba2-1.2b", 8, 2
 STEP_SERVE_ARCH, STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS = (
     "mistral-nemo-12b", 4, 2_048, 16)
+
+# phase 12, the dry-run, the roofline and the cluster demo: (a) cells of
+# python -m repro_torch.launch.dryrun, (arch, shape, mesh, REPRO_GRAD_ACCUM
+# or 0 for the config's), each a subprocess on the CPU within
+# DRYRUN_TIMEOUT; the train cell at two microbatches, which runs the
+# step's split of the gathered batch, since its eight take the dry-run 4-9
+# minutes on a CPU (the pod sweep of launch.dryrun --all)
+DRYRUN_CELLS = (("zamba2-1.2b", "train_4k", "pod", 2),
+                ("mistral-nemo-12b", "decode_32k", "pod", 0),
+                ("zamba2-1.2b", "decode_32k", "multipod", 0))
+DRYRUN_CELLS_REDUCED = (("xlstm-125m", "decode_32k", "pod", 0),)   # the CPU test's
+DRYRUN_TIMEOUT = 420
+# (c): a kept demo launch against its plain version, its largest error as a
+# share of the plain result's largest value (PageRank's first round has
+# x = 1/D, entries near 4e-4, where an absolute F32_TOL would pass anything)
+DEMO_HELD_REL = 1e-5
 
 KERNELS = {
     "coded_matvec": "src/repro/kernels/coded_matvec.py:54",
@@ -2489,13 +2534,13 @@ class TrainProbe:
     each ``CodedDPStep.step`` entry and at ``train``'s return, the card
     synchronised first, so that the interval between two entries is one
     whole step (the coded gradients, the update, the log line and any
-    checkpoint)."""
+    checkpoint), and the dead groups each step was given."""
 
     def __init__(self, dev):
         import repro_torch.launch.train as launch_train
         from repro_torch.runtime.train_loop import CodedDPStep
 
-        self.dev, self.metrics, self.entries = dev, [], []
+        self.dev, self.metrics, self.entries, self.dead = dev, [], [], []
         self._module, self._cls = launch_train, CodedDPStep
         self._train, self._step = launch_train.train, CodedDPStep.step
 
@@ -2510,6 +2555,7 @@ class TrainProbe:
 
         def step(self_, *args, **kwargs):
             probe.mark()
+            probe.dead.append(sorted(kwargs.get("dead_groups") or ()))
             return probe._step(self_, *args, **kwargs)
 
         self._module.train, self._cls.step = train, step
@@ -2546,7 +2592,7 @@ def run_train_main(argv: list, dev, label: str) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
     # every step's interval but the last, which holds the final checkpoint
     step_s = [b - a for a, b in zip(probe.entries[:-1], probe.entries[1:-1])]
-    metrics = probe.metrics[-1]
+    metrics = {**probe.metrics[-1], "dead_groups": probe.dead}
     losses = metrics["losses"]
     if not losses or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"{label}: losses not all finite: {losses}")
@@ -2714,6 +2760,11 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
         if "dead=[3]" not in out:
             raise RuntimeError("phase 10 (a): group 3 was not dead at step 10")
         expect("phase 10 (a): steps run", len(first["losses"]), steps)
+        expect("phase 10 (a): the steps with group 3 dead",
+               [i for i, d in enumerate(first["dead_groups"]) if d],
+               list(range(10, 10 + DEAD_STEPS)))
+        expect("phase 10 (a): the dead group", {tuple(d) for d in first["dead_groups"] if d},
+               {(3,)})
         resumed, resumed_step_s, _, _ = run_train_main(flags + ["--steps", str(more)], dev,
                                                        "phase 10 (a) xlstm-125m, restarted")
         # resumed from the last checkpoint (step steps - 1) with the cursor
@@ -2724,6 +2775,7 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
             "seq": seq, "groups": 8, "tolerate": 2, "fail_group": 3,
             "losses": first["losses"], "final_loss": first["final_loss"],
             "restart_losses": resumed["losses"], "loss_improved": True,
+            "dead_steps": DEAD_STEPS,
             "step_s": step_s, "median_step_s": statistics.median(step_s),
             "restart_step_s": resumed_step_s, "run_s": first_s, "peak_gb": peak,
             "microbatches_per_step": 8 * 3}
@@ -3173,6 +3225,284 @@ def mesh_steps_phase(dev, reduced: bool = False) -> tuple:
     expect("phase 11 (b), (c): designs launched by the step builders", designs,
            {k: dict.fromkeys(v, 0) for k, v in designs.items()})
     record["step_launches"] = counts
+    return launches, record
+
+
+def dryrun_start(cells, out_dir: Path) -> list:
+    """Phase 12 (a): one ``python -m repro_torch.launch.dryrun`` subprocess
+    per cell, all started at once on the CPU (the card hidden from them),
+    each with its own output directory; returns (cell, process, start)."""
+    started = []
+    for arch, shape, mesh, accum in cells:
+        out = out_dir / f"{arch}__{shape}__{mesh}"
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
+               "CUDA_VISIBLE_DEVICES": ""}
+        if accum:
+            env["REPRO_GRAD_ACCUM"] = str(accum)
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                                 arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, cwd=ROOT)
+        started.append(((arch, shape, mesh, accum), proc, time.perf_counter()))
+    return started
+
+
+def dryrun_finish(started, out_dir: Path) -> list:
+    """Phase 12 (a): wait for each dry-run (DRYRUN_TIMEOUT from the phase's
+    start), print its record, and fail unless it ended ``ok`` with every key
+    the JAX package's record has."""
+    records = []
+    try:
+        for (arch, shape, mesh, accum), proc, t0 in started:
+            left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0))
+            log = proc.communicate(timeout=left)[0]
+            path = out_dir / f"{arch}__{shape}__{mesh}" / f"{arch}__{shape}__{mesh}.json"
+            if proc.returncode != 0 or not path.exists():
+                raise RuntimeError(f"phase 12 (a): the dry-run of {arch} x {shape} x {mesh} "
+                                   f"exited {proc.returncode}:\n{log[-3000:]}")
+            rec = json.loads(path.read_text())
+            keys = {"arch", "shape", "mesh", "chips", "compile_s", "memory", "cost",
+                    "roofline", "status"}
+            memory = {"argument_bytes", "output_bytes", "temp_bytes", "generated_code_bytes",
+                      "peak_resident_bytes"}
+            if rec.get("status") != "ok" or not keys <= set(rec) or set(rec["memory"]) != memory:
+                raise RuntimeError(f"phase 12 (a): {arch} x {shape} x {mesh}: {rec}")
+            rec["wall_s"] = time.perf_counter() - t0
+            rec["grad_accum_override"] = accum
+            rl = rec["roofline"]
+            print(f"phase 12 (a): dry-run {arch} x {shape} x {mesh} ({rec['chips']} ranks of a "
+                  f"fake group{f', REPRO_GRAD_ACCUM={accum}' if accum else ''}): "
+                  f"{rec['wall_s']:.1f} s; per chip {rl['flops_per_chip']:.4e} FLOPs, "
+                  f"{rl['bytes_per_chip']:.4e} dot bytes, {rl['coll_bytes_per_chip']:.4e} "
+                  f"collective bytes {rl['coll_breakdown']}; t_compute {rl['t_compute']:.4e} s, "
+                  f"t_memory {rl['t_memory']:.4e} s, t_collective {rl['t_collective']:.4e} s: "
+                  f"{rl['dominant']}; useful FLOPs {rl['useful_flops_fraction']:.4e}, "
+                  f"roofline fraction {rl['roofline_fraction']:.4e}; memory {rec['memory']}",
+                  flush=True)
+            records.append(rec)
+    finally:
+        for _, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return records
+
+
+def roofline_of_step(label: str, fn, cfg, shape, measured_s: float, dev) -> dict:
+    """Phase 12 (b): ``fn()`` once under ``roofline.StepCounter`` on this
+    card's tensors (one rank: no collective), its ``RooflineResult`` with
+    the H100's data-sheet constants beside the measured step time."""
+    import torch
+
+    from repro_torch.launch.roofline import H100, RooflineResult, StepCounter, model_flops
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepCounter(memory=False) as counter:
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    rl = RooflineResult(arch=cfg.name, shape=shape.name, mesh="one card", chips=1,
+                        flops_per_chip=counter.flops, bytes_per_chip=counter.dot_bytes,
+                        coll_bytes_per_chip=0.0, coll_breakdown={}, peak_mem_per_chip=peak,
+                        model_flops_total=model_flops(cfg, shape))
+    ratio = measured_s / rl.bound_time
+    print(f"phase 12 (b): roofline of {label} on one card ({H100.name}): {rl.flops_per_chip:.4e} "
+          f"FLOPs, {rl.bytes_per_chip:.4e} dot bytes; t_compute {rl.t_compute * 1e3:.4f} ms, "
+          f"t_memory {rl.t_memory * 1e3:.4f} ms: {rl.dominant}-bound at "
+          f"{rl.bound_time * 1e3:.4f} ms; phase 11's median {measured_s * 1e3:.3f} ms is "
+          f"{ratio:.2f}x the bound; useful FLOPs {rl.useful_flops_fraction:.4f}; the counted "
+          f"step {counted_s:.3f} s, peak memory {peak / 1e9:.2f} GB", flush=True)
+    if not (rl.flops_per_chip > 0 and rl.bytes_per_chip > 0 and math.isfinite(ratio)):
+        raise RuntimeError(f"phase 12 (b): {label}: no FLOPs or bytes counted")
+    return {**rl.to_dict(), "bound_time": rl.bound_time, "measured_s": measured_s,
+            "measured_over_bound": ratio, "counted_s": counted_s, "peak_gb": peak / 1e9}
+
+
+def step_rooflines(dev, measured: dict, reduced: bool) -> dict:
+    """Phase 12 (b): phase 11 (b)'s train step and (c)'s decode step, each
+    once under the counter beside phase 11's median; then the dry-run of
+    the decode step's cell on a (1, 1) mesh of a ``fake`` group of one rank
+    beside the card's peak over the same step."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config, shape_by_name
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import group
+    from repro_torch.launch.dryrun import fake_group, run_cell
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step, build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizer import make_optimizer
+
+    out = {}
+    # phase 11 (b)'s cell: zamba2-1.2b whole, train_4k cut to 8 sequences
+    cfg = get_config(STEP_TRAIN_ARCH)
+    shape = dataclasses.replace(shape_by_name("train_4k"), global_batch=STEP_TRAIN_BATCH)
+    if reduced:
+        cfg, shape = cfg.reduced(), dataclasses.replace(shape, seq_len=64, global_batch=4)
+    model = build_model(cfg, device=dev)
+    opt = make_optimizer(cfg.optimizer, lr=1e-4)
+    state = opt.init(group(dict(model.named_parameters()), model))
+    step = build_train_step(cfg, shape, opt=opt)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+    out["train"] = roofline_of_step(
+        f"build_train_step on {cfg.name}, {shape.global_batch} x {shape.seq_len}", lambda: float(
+            step(model, state, 0, {"tokens": toks, "labels": toks})["loss"]),
+        cfg, shape, statistics.median(measured["train_step"]["step_s"]), dev)
+    del model, state, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # phase 11 (c)'s cell: mistral-nemo-12b whole, one decode step after a
+    # prompt of STEP_SERVE_PROMPT tokens
+    cfg = get_config(STEP_SERVE_ARCH)
+    b, prompt = STEP_SERVE_BATCH, STEP_SERVE_PROMPT
+    if reduced:
+        cfg, prompt = cfg.reduced(), 32
+    shape = ShapeConfig(f"decode at {prompt}", prompt + 1, b, "decode")
+    model = build_model(cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen, device=dev,
+                           dtype=torch.int32)
+    logits, caches = build_prefill_step(cfg)(model, {"tokens": tokens}, max_seq=prompt + 1)
+    batch = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None], "caches": caches,
+             "pos": prompt}
+    del logits
+    decode = build_decode_step(cfg)
+    out["decode"] = roofline_of_step(
+        f"build_decode_step on {cfg.name}, B = {b} at position {prompt}",
+        lambda: decode(model, batch)[0].cpu(), cfg, shape,
+        statistics.median(measured["serve_steps"]["step_ms"]) / 1e3, dev)
+    del model, caches, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the same decode cell reckoned by the dry-run on a (1, 1) mesh
+    with fake_group(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        rec = run_cell(cfg, shape, mesh, "(1, 1)", verbose=False)
+    reckoned = rec["memory"]["peak_resident_bytes"] / 1e9
+    card = out["decode"]["peak_gb"]
+    print(f"phase 12 (b): the dry-run of the same decode cell on a (1, 1) mesh: peak resident "
+          f"{reckoned:.3f} GB (arguments {rec['memory']['argument_bytes'] / 1e9:.3f} GB, "
+          f"temporaries {rec['memory']['temp_bytes'] / 1e9:.3f} GB) against the card's "
+          f"{card:.3f} GB over the step (torch.cuda.max_memory_allocated)", flush=True)
+    out["decode_dryrun_memory"] = {**rec["memory"], "card_peak_gb": card,
+                                   "reckoned_over_card": reckoned / card if card else None}
+    return out
+
+
+def cluster_demo_on_card(dev, compare) -> tuple:
+    """Phase 12 (c): ``examples/torch_cluster_demo.py`` on ``dev`` with its
+    launches counted from 0; the first ``coded_matvec`` launch of each
+    design and the first ``lstm_sequence`` launch are kept, then held
+    against their plain versions on the same tensors, the largest error
+    within DEMO_HELD_REL of the plain result's largest value.  Returns (the
+    launches by record name, the designs, the phase's record)."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.kernels import coded_matvec as cmv
+    from repro_torch.kernels import lstm_cell as lstm
+    from repro_torch.kernels import ops
+
+    spec = importlib.util.spec_from_file_location("torch_cluster_demo",
+                                                  ROOT / "examples" / "torch_cluster_demo.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    kept, lock = {}, threading.Lock()
+    real_cmv, real_seq = ops.coded_matvec, ops.lstm_sequence
+
+    def keep(key, args):
+        with lock:
+            if key not in kept:
+                kept[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+    def counted_cmv(a, x, block_ids, block_rows):
+        keep(cmv.design_of(a, x), (a, x, block_ids, block_rows))
+        return real_cmv(a, x, block_ids, block_rows)
+
+    def counted_seq(*args):
+        keep("sequence", args)
+        return real_seq(*args)
+
+    ops.reset_launch_counts()
+    ops.coded_matvec, ops.lstm_sequence = counted_cmv, counted_seq
+    t0 = time.perf_counter()
+    try:
+        code = demo.main(["--device", dev.type])
+    finally:
+        ops.coded_matvec, ops.lstm_sequence = real_cmv, real_seq
+    demo_s = time.perf_counter() - t0
+    counts, designs = ops.launch_counts(), ops.design_counts()
+    print(f"phase 12 (c): examples/torch_cluster_demo.py on {dev}: exit {code} in {demo_s:.1f} s; "
+          f"launches {counts}; by design {designs}; kept {sorted(kept)}", flush=True)
+    if code != 0:
+        raise RuntimeError(f"phase 12 (c): the demo exited {code}")
+    if dev.type == "cuda":
+        for name, want in (("coded_matvec", "stream"), ("coded_matvec", "multi"),
+                           ("lstm_cell", "sequence")):
+            if designs[name][want] == 0 or want not in kept:
+                raise RuntimeError(f"phase 12 (c): the demo launched no {name} on the {want} "
+                                   f"design: {designs}")
+        expect("phase 12 (c): the demo's launches off its path",
+               (counts["mds_encode"], counts["mds_decode"], designs["lstm_cell"]["cell"]),
+               (0, 0, 0))
+    errs, scales = {}, {}
+    for key, args in sorted(kept.items()):
+        if key == "sequence":
+            label = "phase 12 (c) lstm_sequence (a predictor window)"
+            got, want = ops.lstm_sequence(*args), lstm.lstm_sequence_plain(*args)
+        else:
+            label = (f"phase 12 (c) coded_matvec {key} {tuple(args[0].shape)} x "
+                     f"{tuple(args[1].shape)}")
+            got, want = ops.coded_matvec(*args), cmv.coded_matvec_plain(*args)
+        scales[key] = max(float(w.abs().max()) for w in
+                          (want if isinstance(want, tuple) else (want,)))
+        limit = DEMO_HELD_REL * scales[key]
+        errs[key] = compare(label, got, want, limit)
+        if errs[key] > limit:
+            raise RuntimeError(f"{label}: max abs err {errs[key]:.3e} > {limit:.3e} "
+                               f"({DEMO_HELD_REL} of the plain result's largest value)")
+    print(f"phase 12 (c): the demo's launches against their plain versions, max abs err "
+          f"{errs}, the plain results' largest values {scales} (limit {DEMO_HELD_REL} of "
+          "each)", flush=True)
+    return counts, designs, {"demo_s": demo_s, "launches": counts, "designs": designs,
+                             "held_max_abs_err": errs, "held_max_abs_plain": scales}
+
+
+def roofline_phase(dev, compare, measured: dict, reduced: bool = False) -> tuple:
+    """Phase 12: (a) the dry-run's cells in subprocesses, started first and
+    collected last, (b) the roofline of phase 11's steps on the card, (c)
+    the cluster demo on the card with its kernels held.  ``measured``:
+    phase 11's record.  Returns (the demo's launches by record name, the
+    phase's record)."""
+    import tempfile
+
+    record = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        started = dryrun_start(DRYRUN_CELLS_REDUCED if reduced else DRYRUN_CELLS, Path(tmp))
+        try:
+            t0 = time.perf_counter()
+            record["steps"] = step_rooflines(dev, measured, reduced)
+            record["steps_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            counts, designs, record["demo"] = cluster_demo_on_card(dev, compare)
+            record["demo_s"] = time.perf_counter() - t0
+        finally:
+            t0 = time.perf_counter()
+            record["dryrun"] = dryrun_finish(started, Path(tmp))
+            record["dryrun_wait_s"] = time.perf_counter() - t0
+    launches = dict(counts)
+    launches["coded_matvec (multi design)"] = designs["coded_matvec"]["multi"]
     return launches, record
 
 
@@ -3738,6 +4068,15 @@ def main() -> int:
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["mesh_launches"] = mesh_counts.get(rec["name"], 0)
 
+    # -- 12. the dry-run, the roofline and the cluster demo --------------------
+    t0 = time.perf_counter()
+    demo_counts, rooflined = roofline_phase(dev, compare, meshed)
+    rooflined["phase_s"] = time.perf_counter() - t0
+    print(f"dry-run, roofline and demo phase: {rooflined['phase_s']:.1f} s", flush=True)
+    for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
+        rec["demo_launches"] = demo_counts.get(rec["name"], 0)
+
+    print(json.dumps({"roofline": rooflined}))
     print(json.dumps({"mesh_steps": meshed}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"encdec": encdec}))

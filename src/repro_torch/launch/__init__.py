@@ -10,6 +10,9 @@
   batches and caches on them as DTensors.
 * :mod:`repro_torch.launch.steps` — the train, prefill and decode step
   builders and each cell's abstract inputs and shardings.
+* :mod:`repro_torch.launch.roofline` and :mod:`~repro_torch.launch.dryrun`
+  — every (arch × shape) run once on a ``fake`` process group of the
+  production meshes, counted per rank against the H100's roofline.
 
 Nothing is imported here, so importing one module loads only what it needs.
 """

@@ -16,14 +16,16 @@ order (they always do from :data:`DEFAULT_RULES`).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh, _mesh_resources
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 
 __all__ = ["DEFAULT_RULES", "Spec", "resolve_axes", "mesh_sizes", "placements", "mentions",
-           "current_mesh", "constrain", "gathered", "local", "on_replicated"]
+           "current_mesh", "constrain", "split_heads", "gathered", "local", "on_replicated",
+           "on_batch_shards"]
 
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
@@ -150,6 +152,24 @@ def constrain(x: torch.Tensor, axes: Sequence[Optional[str]], rules: Optional[Di
     return x.redistribute(mesh, want)
 
 
+def split_heads(x: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """x (..., heads·head_dim) viewed as (..., heads, head_dim).
+
+    A DTensor split on its last dim keeps the split where it falls on whole
+    heads and is replicated on that dim first where it does not (8 KV heads
+    on a 16-way model axis): DTensor cannot unflatten a dim split inside a
+    head, where GSPMD reshards the reshape.  A plain tensor is only viewed.
+    """
+    if isinstance(x, DTensor):
+        last = x.ndim - 1
+        ways = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                         if p.is_shard(last))
+        if heads % ways:
+            x = x.redistribute(x.device_mesh, tuple(Replicate() if p.is_shard(last) else p
+                                                    for p in x.placements))
+    return x.reshape(*x.shape[:-1], heads, head_dim)
+
+
 def gathered(x: torch.Tensor) -> torch.Tensor:
     """A DTensor replicated on every rank of its mesh (an all-gather, as GSPMD
     inserts one before an op it cannot run sharded); a plain tensor as it is.
@@ -181,3 +201,47 @@ def on_replicated(fn: Callable) -> Callable:
         out = fn(*map(local, args), **{k: local(v) for k, v in kwargs.items()})
         return DTensor.from_local(out, mesh, (Replicate(),) * mesh.ndim, run_check=False)
     return run
+
+
+def on_batch_shards(*batched: int) -> Callable:
+    """A decorator: ``fn`` run on this rank's share of the batch, as a
+    ``shard_map`` over the batch axes.  The positional arguments at the
+    indices ``batched`` lead with the batch dim: when one of them is a
+    DTensor, each keeps only its split of dim 0 and is replicated on every
+    other mesh dim (a plain one counts as replicated and is split so), the
+    other DTensor arguments are replicated, and ``fn`` runs on the local
+    tensors; each tensor it returns, batch first, is wrapped back as a
+    DTensor split as the batch is.  The other arguments' gradients are
+    partial sums over the batch's mesh dims.  For a block of operations
+    that needs no collective, run locally instead of one DTensor dispatch
+    each: a loop over positions or chunks, and operations some torch
+    releases have no sharding rule for (``flip`` in ``cumsum``'s backward,
+    the padding of a causal convolution).  With no DTensor among the
+    batched arguments, ``fn`` itself."""
+    def decorate(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def run(*args):
+            lead = next((args[i] for i in batched if isinstance(args[i], DTensor)), None)
+            if lead is None:
+                return fn(*args)
+            mesh = lead.device_mesh
+            split = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in lead.placements)
+            partial = tuple(Partial() if p.is_shard(0) else Replicate() for p in split)
+            whole = (Replicate(),) * mesh.ndim
+
+            def unwrap(i, a):
+                if i in batched:
+                    if not isinstance(a, DTensor):
+                        a = DTensor.from_local(a, mesh, whole, run_check=False)
+                    return a.redistribute(mesh, split).to_local()
+                if isinstance(a, DTensor):
+                    return a.redistribute(mesh, whole).to_local(grad_placements=partial)
+                return a
+
+            def wrap(t):
+                if isinstance(t, torch.Tensor):
+                    return DTensor.from_local(t, mesh, split, run_check=False)
+                return type(t)(map(wrap, t))
+            return wrap(fn(*(unwrap(i, a) for i, a in enumerate(args))))
+        return run
+    return decorate

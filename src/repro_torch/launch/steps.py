@@ -204,7 +204,11 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh=None,
     def train_step(model, opt_state, step: int, batch: Dict[str, torch.Tensor]):
         names = [n for n, _ in model.named_parameters()]
         params = [p for _, p in model.named_parameters()]
-        mbs = {k: v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
+        # DTensor cannot split a batch dim sharded over (pod, data) into
+        # (accum, B / accum) (GSPMD reshards the reshape): the microbatches
+        # come from the gathered batch, and the model shards each again
+        mbs = {k: (gathered(v) if accum > 1 else v).reshape(
+                   (accum, v.shape[0] // accum) + tuple(v.shape[1:]))
                for k, v in batch.items()}
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss_sum = None

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.partition import gathered, on_replicated
+from repro_torch.launch.partition import gathered, on_replicated, split_heads
 from repro_torch.launch.partition import local as plain
 from repro_torch.models.params import ParamSpec
 
@@ -111,10 +111,9 @@ def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
-    b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = split_heads(x @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -325,16 +324,15 @@ def cross_attn_apply(p: Params, x: torch.Tensor, enc_k: torch.Tensor,
                      enc_v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x: (B, S, d); enc_k/enc_v: (B, T, KV, hd) — no mask (full cross)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
     out = blockwise_attention(q, enc_k, enc_v, causal=False, window=0)
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
 def cross_kv(p: Params, enc_out: torch.Tensor,
              cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, t, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    k = split_heads(enc_out @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = split_heads(enc_out @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -343,7 +341,7 @@ def cross_attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
     """One token's cross-attention against the static encoder K/V cache
     {"k": (B, T, KV, hd), "v": ...}, which it never writes."""
     b = x.shape[0]
-    q = (x @ p["wq"]).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
     att = decode_attention(q, cache["k"], cache["v"], pos=cache["k"].shape[1] - 1)
     return att.reshape(b, 1, cfg.q_dim) @ p["wo"]
 

@@ -160,7 +160,11 @@ def _shared_mlp(shared_p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def block_apply(p, x: torch.Tensor, cfg: ArchConfig, slot: Slot,
                 shared_p=None) -> torch.Tensor:
     """Full-sequence (train) path for one block, after the shared attention
-    block where the slot has one."""
+    block where the slot has one.  On a mesh its input is first split over
+    the batch alone: a period's end may leave the sequence split over
+    ``model`` (``seq_shard_train``), which the block's matmuls cannot take
+    on every torch release; under remat the saved input stays split."""
+    x = constrain(x, ("batch", None, None))
     if slot.shared_attn and shared_p is not None:
         x = x + L.attn_apply(shared_p["attn"], L.apply_norm(shared_p["norm"], x), cfg,
                              causal=True, local=False)
@@ -269,7 +273,7 @@ class LM(nn.Module):
                 # a period's end (the JAX package's scan carry): batch over
                 # (pod, data), optionally the sequence over model
                 x = constrain(x, ("batch", "seq_sp", None), sp_rules)
-        x = L.apply_norm(self.final_norm, x)
+        x = L.apply_norm(self.final_norm, constrain(x, ("batch", None, None)))
         logits = L.head_apply(self.embed, x, cfg).float()
         return constrain(logits, ("batch", None, "vocab"))
 

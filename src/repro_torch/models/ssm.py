@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.partition import constrain, on_replicated
+from repro_torch.launch.partition import constrain, on_batch_shards, on_replicated, split_heads
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["CHUNK", "mamba_specs", "mamba_apply", "mamba_init_state", "mamba_decode",
@@ -90,8 +90,9 @@ def mamba_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
+@on_batch_shards(0, 1, 2, 3)
 def _ssd_chunk_scan(xh, dt, b, c, a_log, chunk: int):
-    """SSD chunkwise scan.
+    """SSD chunkwise scan (on a mesh, on each rank's batch shard).
 
     xh: (B, S, H, P) inputs; dt: (B, S, H) positive step sizes; b, c:
     (B, S, N) input/output projections (shared across heads, 1 group);
@@ -145,6 +146,18 @@ def _mamba_split(zxbcdt: torch.Tensor, cfg: ArchConfig):
                        dim=-1)
 
 
+@on_batch_shards(1)
+def _causal_conv(w: torch.Tensor, xbc: torch.Tensor):
+    """The causal depthwise convolution of xbc (B, S, C) with w (K, C), in
+    the model dtype, and xbc left-padded with K - 1 zero positions."""
+    s = xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, w.shape[0] - 1, 0))
+    conv = pad[:, 0:s] * w[0]
+    for i in range(1, w.shape[0]):
+        conv = conv + pad[:, i:i + s] * w[i]
+    return conv, pad
+
+
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, chunk: int = CHUNK,
                 return_state: bool = False):
     """Mamba-2 block, full sequence. x: (B, S, d).
@@ -158,17 +171,14 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, chunk: int = CHUNK,
     n = cfg.ssm_state
     chunk, _ = _chunks(s, chunk)
 
-    z, xr, b, c, dt = _mamba_split(x @ p["in_proj"], cfg)
-    # causal depthwise conv over (x, B, C), in the model dtype
-    xbc = torch.cat([xr, b, c], dim=-1)
-    pad = F.pad(xbc, (0, 0, cfg.ssm_conv - 1, 0))
-    conv = pad[:, 0:s] * p["conv_w"][0]
-    for i in range(1, cfg.ssm_conv):
-        conv = conv + pad[:, i:i + s] * p["conv_w"][i]
+    # on a mesh, the projection split over the batch alone (DTensor may
+    # leave it partial, or split its sequence, where GSPMD would not)
+    z, xr, b, c, dt = _mamba_split(constrain(x @ p["in_proj"], ("batch", None, None)), cfg)
+    conv, pad = _causal_conv(p["conv_w"], torch.cat([xr, b, c], dim=-1))
     xr, b, c = torch.split(F.silu(conv), [d_inner, n, n], dim=-1)
 
     dt = F.softplus(dt.float() + p["dt_bias"])
-    xh = xr.reshape(bsz, s, nheads, head_dim).float()
+    xh = split_heads(xr, nheads, head_dim).float()
     y, final_state = _ssd_chunk_scan(xh, dt, b.float(), c.float(), p["a_log"], chunk)
     y = y + xh * p["d_skip"][:, None]
     y = (y.reshape(bsz, s, d_inner) * F.silu(z.float())).to(x.dtype)
@@ -205,7 +215,7 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, state: State
 
     dt = F.softplus(dt.float() + p["dt_bias"])                     # (B, H)
     da = torch.exp(-torch.exp(p["a_log"]) * dt)                    # (B, H)
-    xh = xr.reshape(bsz, nheads, head_dim)
+    xh = split_heads(xr, nheads, head_dim)
     ssm = (state["ssm"] * da[:, :, None, None]
            + b[:, None, :, None] * (dt[:, :, None] * xh)[:, :, None, :])
     y = (c[:, None, None, :] @ ssm)[:, :, 0] + xh * p["d_skip"][:, None]
@@ -244,11 +254,10 @@ def _mlstm_inputs(p: Params, x: torch.Tensor, cfg: ArchConfig):
     """(q, k, v (..., H, hd), log_i, log_f (..., H), z) of x (..., d), all
     float32 but z."""
     _, nh, hd = _mlstm_dims(cfg)
-    lead = x.shape[:-1]
     xi, z = torch.chunk(x @ p["up_proj"], 2, dim=-1)
-    q = (xi @ p["wq"]).reshape(*lead, nh, hd).float()
-    k = (xi @ p["wk"]).reshape(*lead, nh, hd).float() / math.sqrt(hd)
-    v = (xi @ p["wv"]).reshape(*lead, nh, hd).float()
+    q = split_heads(xi @ p["wq"], nh, hd).float()
+    k = split_heads(xi @ p["wk"], nh, hd).float() / math.sqrt(hd)
+    v = split_heads(xi @ p["wv"], nh, hd).float()
     log_i = (xi @ p["w_i"]).float()
     log_f = _logsigmoid((xi @ p["w_f"]).float() + p["f_bias"])     # <= 0
     return q, k, v, log_i, log_f, z
@@ -265,11 +274,22 @@ def mlstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, chunk: int = CHUNK,
     scanned (C, n, m) state across chunks, all in float32.  Inside: heads
     lead, (B, nc, H, Q, ·).
     """
-    bsz, s, _ = x.shape
-    d_inner, nh, hd = _mlstm_dims(cfg)
-    chunk, nc = _chunks(s, chunk)
-
+    chunk, _ = _chunks(x.shape[1], chunk)
     q, k, v, log_i, log_f, z = _mlstm_inputs(p, x, cfg)
+    h, c_st, n_st, m_st = _mlstm_chunks(q, k, v, log_i, log_f, chunk)
+    out = (h * F.silu(z.float())).to(x.dtype) @ p["down_proj"]
+    if return_state:
+        return out, {"c": c_st, "n": n_st, "m": m_st}
+    return out
+
+
+@on_batch_shards(0, 1, 2, 3, 4)
+def _mlstm_chunks(q, k, v, log_i, log_f, chunk: int):
+    """The mLSTM's chunkwise form over q, k, v (B, S, H, hd) and the log
+    gates (B, S, H), float32 (on a mesh, on each rank's batch shard):
+    (h (B, S, H·hd), the final C, n and m)."""
+    bsz, s, nh, hd = q.shape
+    nc = s // chunk
 
     def heads_first(t):      # (B, S, H, ...) -> (B, nc, H, Q, ...)
         return t.reshape(bsz, nc, chunk, *t.shape[2:]).transpose(2, 3)
@@ -279,7 +299,7 @@ def mlstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, chunk: int = CHUNK,
     tot_f = cum_f[..., -1]                                         # (B,nc,H)
 
     # intra-chunk decay: prod_{r=j+1..t} f_r * i_j = cum_f[t] - cum_f[j] + log_i[j]
-    mask = _tril(chunk, x.device)
+    mask = _tril(chunk, q.device)
     dmat = cum_f[..., :, None] - cum_f[..., None, :] + lic[..., None, :]   # (B,nc,H,t,j)
     dmat = torch.where(mask, dmat, -math.inf)
     scores = qc @ kc.transpose(-1, -2)                             # (B,nc,H,t,j)
@@ -291,9 +311,9 @@ def mlstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, chunk: int = CHUNK,
     c_loc = (kc * w[..., None]).transpose(-1, -2) @ vc             # (B,nc,H,hd,hd)
     n_loc = (kc * w[..., None]).sum(-2)                            # (B,nc,H,hd)
 
-    c_st = torch.zeros((bsz, nh, hd, hd), dtype=torch.float32, device=x.device)
-    n_st = torch.zeros((bsz, nh, hd), dtype=torch.float32, device=x.device)
-    m_st = torch.full((bsz, nh), NEG, dtype=torch.float32, device=x.device)
+    c_st = torch.zeros((bsz, nh, hd, hd), dtype=torch.float32, device=q.device)
+    n_st = torch.zeros((bsz, nh, hd), dtype=torch.float32, device=q.device)
+    m_st = torch.full((bsz, nh), NEG, dtype=torch.float32, device=q.device)
     c_prev, n_prev, m_prev = [], [], []                            # the carry BEFORE each chunk
     for g in range(nc):
         c_prev.append(c_st)
@@ -325,12 +345,7 @@ def mlstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, chunk: int = CHUNK,
 
     denom = torch.maximum(torch.abs(nq_intra + nq_inter), torch.exp(-m_tot))  # max(|nᵀq|, 1)·e^-m
     h = (h_intra + h_inter) / denom[..., None]
-    h = h.transpose(2, 3).reshape(bsz, s, d_inner)
-
-    out = (h * F.silu(z.float())).to(x.dtype) @ p["down_proj"]
-    if return_state:
-        return out, {"c": c_st, "n": n_st, "m": m_st}
-    return out
+    return h.transpose(2, 3).reshape(bsz, s, nh * hd), c_st, n_st, m_st
 
 
 def mlstm_init_state(cfg: ArchConfig, batch: int, device=None) -> State:
@@ -400,12 +415,15 @@ def _slstm_step(r32: torch.Tensor, bias: torch.Tensor, carry, xw: torch.Tensor):
     return h_new, c_new, n_new, m_new
 
 
+@on_batch_shards(2)
 def _slstm_scan(r32: torch.Tensor, bias: torch.Tensor, xw: torch.Tensor):
     """The recurrence over xw (B, S, NH, 4hd) from a zero carry: (hs (B, S,
     NH, hd), the final carry).  Autograd differentiates it step by step;
     the JAX package's custom VJP for this scan (``_slstm_scan_cv``) exists
     to keep a per-step all-reduce of the recurrent weights' gradient off a
-    data-parallel mesh, which one card does not have."""
+    data-parallel mesh, which one card does not have.  On a mesh it runs on
+    each rank's batch shard (``on_batch_shards``), not step by step on
+    DTensors."""
     bsz, s, nh, hd4 = xw.shape
     zero = torch.zeros((bsz, nh, hd4 // 4), dtype=xw.dtype, device=xw.device)
     carry = (zero, zero, zero, torch.full_like(zero, NEG))
@@ -416,6 +434,12 @@ def _slstm_scan(r32: torch.Tensor, bias: torch.Tensor, xw: torch.Tensor):
     return torch.stack(hs, dim=1), carry
 
 
+@on_batch_shards(2, 3, 4, 5, 6)
+def _slstm_decode_step(r32, bias, xw, h, c, n, m):
+    """One position of the recurrence (on a mesh, on each rank's batch shard)."""
+    return _slstm_step(r32, bias, (h, c, n, m), xw)
+
+
 def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, return_state: bool = False):
     """sLSTM full-sequence path: one recurrent step per position."""
     bsz, s, d = x.shape
@@ -423,7 +447,7 @@ def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, return_state: bool 
     hd = d // nh
     # the gate pre-activations gathered once before the sequential scan
     xw = constrain((x @ p["w_gates"]).float(), ("batch", None, None))
-    xw = xw.reshape(bsz, s, nh, 4 * hd)
+    xw = split_heads(xw, nh, 4 * hd)
     hs, carry = _slstm_scan(p["r_gates"].float(), p["b_gates"].reshape(nh, 4 * hd), xw)
     out = hs.reshape(bsz, s, d).to(x.dtype) @ p["out_proj"]
     if return_state:
@@ -443,8 +467,8 @@ def slstm_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, state: State
     """One-token sLSTM step. x: (B, 1, d)."""
     bsz, _, d = x.shape
     nh = cfg.num_heads
-    xw = (x[:, 0] @ p["w_gates"]).float().reshape(bsz, nh, 4 * d // nh)
-    carry = _slstm_step(p["r_gates"].float(), p["b_gates"].reshape(nh, -1),
-                        (state["h"], state["c"], state["n"], state["m"]), xw)
+    xw = split_heads((x[:, 0] @ p["w_gates"]).float(), nh, 4 * d // nh)
+    carry = _slstm_decode_step(p["r_gates"].float(), p["b_gates"].reshape(nh, -1), xw,
+                               state["h"], state["c"], state["n"], state["m"])
     out = carry[0].reshape(bsz, d).to(x.dtype) @ p["out_proj"]
     return out[:, None], dict(zip("hcnm", carry))

@@ -18,10 +18,13 @@ runs no collective: it makes a ``fake`` group of 256 (512 with MULTI_POD
 1) ranks at each of the RANKS (a JSON list) in turn and writes the local
 shapes and offsets of the arch's train state (:func:`layout`).
 
-MODE ``train``: one sharded ``build_train_step`` on a 2 × 2 ``("data",
-"model")`` mesh; IN_NPZ holds the arch, the port's parameters by name, the
-batch and the learning rate; the output holds the loss, the gradient norm
-and every parameter after the step, gathered.
+MODE ``train``: one sharded ``build_train_step`` on a ``("data",
+"model")`` mesh, 2 × 2 unless IN_NPZ holds ``mesh``; IN_NPZ holds the
+arch, the port's parameters by name, the batch and the learning rate; the
+output holds the loss, the gradient norm and every parameter after the
+step, gathered.  With ``prefill`` in IN_NPZ, ``build_prefill_step`` runs
+first on the batch's tokens (and image embeds or frames), and the output
+also holds its last position's logits, gathered.
 """
 
 from __future__ import annotations
@@ -64,12 +67,15 @@ def train(rank: int, world: int, data, dev: torch.device) -> dict:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.convert import group
     from repro_torch.launch import sharding as SH
-    from repro_torch.launch.steps import build_train_step, shard_model, train_state_shardings
+    from repro_torch.launch.partition import local
+    from repro_torch.launch.steps import (build_prefill_step, build_train_step, shard_model,
+                                          train_state_shardings)
     from repro_torch.models import build_model
     from repro_torch.optim.optimizer import make_optimizer
 
     cfg = get_config(str(data["arch"])).reduced()
-    mesh = init_device_mesh(dev.type, (2, 2), mesh_dim_names=("data", "model"))
+    shape_ = tuple(int(v) for v in data["mesh"]) if "mesh" in data.files else (2, 2)
+    mesh = init_device_mesh(dev.type, shape_, mesh_dim_names=("data", "model"))
     model = build_model(cfg, device=dev)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -83,9 +89,15 @@ def train(rank: int, world: int, data, dev: torch.device) -> dict:
     bsh = SH.batch_shardings(mesh, batch)
     shape = ShapeConfig("smoke", batch["tokens"].shape[1], batch["tokens"].shape[0], "train")
     step = build_train_step(cfg, shape, mesh=mesh, opt=opt)
+    out = {}
     with mesh:
-        metrics = step(model, state, 0, SH.place(batch, bsh))
-    out = {"loss": metrics["loss"].cpu().numpy(), "grad_norm": metrics["grad_norm"].cpu().numpy()}
+        placed = SH.place(batch, bsh)
+        if "prefill" in data.files:
+            logits, _ = build_prefill_step(cfg)(
+                model, {k: v for k, v in placed.items() if k != "labels"})
+            out["logits"] = local(logits).detach().float().cpu().numpy()
+        metrics = step(model, state, 0, placed)
+    out.update(loss=metrics["loss"].cpu().numpy(), grad_norm=metrics["grad_norm"].cpu().numpy())
     for name, p in model.named_parameters():
         out["p:" + name] = p.full_tensor().detach().float().cpu().numpy()
     return out

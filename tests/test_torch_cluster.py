@@ -500,7 +500,8 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_port_cluster_keeps_the_concurrency_contracts():
-    out = subprocess.run([sys.executable, "-m", "repro.analysis", "src/repro_torch/cluster"],
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "src/repro_torch/cluster"],
                          capture_output=True, text=True, cwd=ROOT, timeout=300,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stdout + out.stderr

@@ -20,7 +20,7 @@ def _run(name: str, *args: str) -> str:
 
 
 @pytest.mark.parametrize("name", ["torch_quickstart.py", "torch_pagerank.py",
-                                  "torch_serve_lm.py"])
+                                  "torch_serve_lm.py", "torch_cluster_demo.py"])
 def test_example_runs_and_asserts(name):
     assert _run(name).splitlines()[-1] == "OK"
 
