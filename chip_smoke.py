@@ -250,16 +250,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         card's memory in use;
     (b) ``build_train_step`` on zamba2-1.2b whole at ``train_4k``'s 4,096
         tokens, its global batch of 256 cut to 8, ``grad_accum_for``'s
-        microbatches, ``cfg.optimizer``: 2 steps, every loss and gradient
-        norm finite, each step's time and the peak memory;
+        microbatches, ``cfg.optimizer``: 1 step, its loss and gradient norm
+        finite, its time and the peak memory;
     (c) ``build_prefill_step`` and ``build_decode_step`` on mistral-nemo-12b
         whole in bfloat16, ``decode_32k``'s batch of 128 cut to 4 and its
         context to a 2,048-token prompt, 16 greedy steps: the logits and
         tokens bit for bit ``LM.prefill`` and ``LM.decode_step`` called
         directly; then the parameters placed by ``param_shardings`` on a
         (1, 1) mesh over a world-size-1 NCCL group, whose tokens must be the
-        same; (b) and (c) launch none of the four kernels (their counters
-        read 0), as the JAX package's step builders reach no Pallas kernel.
+        same;
+    (d) ``build_prefill_step`` and ``build_decode_step`` on a (2, 2)
+        ``("data", "model")`` mesh of 4 spawned ranks that share the card
+        over gloo (DTensor's all-gathers, reduce-scatters and all-to-alls
+        of CUDA tensors staged through host memory: gloo crashes gathering
+        CUDA tensors into one): zamba2-1.2b and seamless-m4t-large-v2 whole,
+        in bfloat16 and in float32 with the same weights, 4 x 512 tokens
+        (seamless: 512 frames and 512 tokens) and 8 steps decoding the
+        unsharded bfloat16 run's greedy tokens; each rank's heads, experts,
+        caches and recurrent states its own (``partition.on_local_shards``),
+        every cache a DTensor placed by ``cache_sharding_rules`` after the
+        prefill and each step; float32 logits within F32_HANDOFF_REL of the
+        unsharded run's; bfloat16 logits, at each step, within HANDOFF_REL
+        of the unsharded float32 run's or no farther from them than
+        MESH_BF16_RATIO times the unsharded bfloat16 run's; in both dtypes
+        the first step's tokens equal; each rank's peak allocation beside the
+        dry-run's reckoning of the cells on a ``fake`` group of 4;
+        (b)-(d) launch none of the four kernels (their counters read 0), as
+        the JAX package's step builders reach no Pallas kernel.
 
 12. the dry-run, the roofline and the cluster demo:
     (a) ``python -m repro_torch.launch.dryrun`` in three subprocesses on
@@ -424,9 +441,31 @@ PROFILED_MICROBATCHES = 2
 # context to a STEP_SERVE_PROMPT-token prompt
 MESH_ITERS, MESH_TIMEOUT = 10, 600
 MESH_SIZE_REDUCED = (4, 3, 6, 360, 16, 3)   # the CPU test's n, k, C, rows, cols, iterations
-STEP_TRAIN_ARCH, STEP_TRAIN_BATCH, STEP_TRAIN_STEPS = "zamba2-1.2b", 8, 2
+# (b) takes one step since phase 11 (d) came (two before), for the script's
+# time; the CPU test's reduced run two
+STEP_TRAIN_ARCH, STEP_TRAIN_BATCH, STEP_TRAIN_STEPS = "zamba2-1.2b", 8, 1
+STEP_TRAIN_STEPS_REDUCED = 2
 STEP_SERVE_ARCH, STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS = (
     "mistral-nemo-12b", 4, 2_048, 16)
+# (d) build_prefill_step and build_decode_step on a MESH_SERVE_SHAPE
+# ("data", "model") mesh of spawned ranks sharing the card over gloo, each
+# model whole from seed 0 in bfloat16 and in float32 (the same weights,
+# upcast): B prompts of P tokens (the encoder-decoder: P frames and P
+# tokens), then S steps, against the same calls unsharded on the card.
+# float32 logits at F32_HANDOFF_REL of the unsharded float32 run's; the
+# bfloat16 run no farther from that float32 run than MESH_BF16_RATIO times
+# the unsharded bfloat16 run is, step by step, or within HANDOFF_REL of it:
+# on one H100 (NVIDIA H100 80GB HBM3, 700 W) zamba2's unsharded bfloat16
+# run is 0.53 of the largest logit from its float32 twin over the 512-token
+# prefill and 8 steps with random weights, so no bfloat16 run that sums in
+# another order comes within HANDOFF_REL of it (tests/test_torch_mesh_serve.py
+# holds the port's bfloat16 distance from float32 to the JAX package's)
+MESH_SERVE_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2")
+MESH_BF16_RATIO = 1.5
+MESH_SERVE_DTYPES = ("float32", "bfloat16")
+MESH_SERVE_SHAPE, MESH_SERVE_TIMEOUT = (2, 2), 600
+MESH_SERVE_TRAFFIC = (4, 512, 8)             # B, P, S
+MESH_SERVE_TRAFFIC_REDUCED = (4, 16, 4)      # the CPU test's
 
 # phase 12, the dry-run, the roofline and the cluster demo: (a) cells of
 # python -m repro_torch.launch.dryrun, (arch, shape, mesh, REPRO_GRAD_ACCUM
@@ -3080,7 +3119,7 @@ def step_train(dev, reduced: bool) -> dict:
     step = build_train_step(cfg, shape, opt=opt)
     gen = torch.Generator(device=dev).manual_seed(5)
     losses, norms, step_s = [], [], []
-    for i in range(STEP_TRAIN_STEPS):
+    for i in range(STEP_TRAIN_STEPS_REDUCED if reduced else STEP_TRAIN_STEPS):
         toks = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len),
                              generator=gen, device=dev, dtype=torch.int32)
         if dev.type == "cuda":
@@ -3201,11 +3240,404 @@ def step_serve(dev, reduced: bool) -> dict:
             "mesh_prefill_logits_max_abs_err": placed_logits_err, "peak_gb": peak}
 
 
+def mesh_serve_inputs(cfg, b: int, prompt: int, dev) -> dict:
+    """Phase 11 (d)'s prompts: B x P tokens (and B x P frames for the
+    encoder-decoder, drawn in bfloat16), from seed 13."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen, device=dev,
+                                   dtype=torch.int32)}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn(b, prompt, cfg.frontend_dim, generator=gen, device=dev,
+                                    dtype=torch.bfloat16)
+    return out
+
+
+def mesh_serve_model(arch: str, reduced: bool, dtype: str, dev):
+    """Phase 11 (d)'s model of ``arch`` (its reduced float32 smoke config
+    when ``reduced``) in ``dtype``, its weights drawn from seed 0 in
+    bfloat16 and, for float32, upcast: both dtypes serve the same weights.
+    Returns (config, model)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    drawn = dataclasses.replace(cfg, dtype="bfloat16")
+    model = build_model(drawn, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    if dtype == "bfloat16":
+        return drawn, model
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    wide = build_model(cfg, device="meta").to_empty(device=dev)
+    with torch.no_grad():
+        for w, p in zip(wide.parameters(), model.parameters()):
+            w.copy_(p)
+    return cfg, wide
+
+
+def mesh_serve_run(model, cfg, batch: dict, steps: int, feed=None, check=None) -> dict:
+    """``build_prefill_step`` with room for ``steps`` tokens, then ``steps``
+    calls of ``build_decode_step``: each step decodes ``feed[:, t]`` (the
+    unsharded run's greedy tokens) or, without ``feed``, the last step's
+    greedy token.  Returns the prefill's and every step's logits (gathered,
+    float32, on the host), each step's greedy token, the tokens fed, the
+    prefill's and each step's seconds, ``check(caches)`` after the prefill
+    and after every step, and the caches after the last step."""
+    import torch
+
+    from repro_torch.launch.partition import place_local
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+
+    tokens = batch["tokens"]
+    dev = tokens.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t   # noqa: E731
+    prompt = tokens.shape[1] + (cfg.frontend_tokens if "image_embeds" in batch else 0)
+    seen: list = []
+    decode = model.decode_step
+
+    def probe(token, caches, pos):
+        logits, caches = decode(token, caches, pos)
+        seen.append(whole(logits).float().cpu())
+        return logits, caches
+
+    model.decode_step = probe
+    checked: list = []
+    try:
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = build_prefill_step(cfg)(model, batch, max_seq=prompt + steps)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        logits = whole(logits).float().cpu()
+        checked.append(check(caches) if check else True)
+        step, step_s, greedy, fed = build_decode_step(cfg), [], [], []
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        for t in range(steps):
+            tok = feed[:, t:t + 1] if feed is not None else tok
+            fed.append(tok)
+            token = tok.to(dev).contiguous()
+            if hasattr(tokens, "device_mesh"):
+                token = place_local(token, tokens.device_mesh, tokens.placements)
+            sync()
+            t0 = time.perf_counter()
+            nxt, caches = step(model, {"token": token, "caches": caches,
+                                       "pos": torch.tensor(prompt + t)})
+            tok = whole(nxt).cpu()
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            greedy.append(tok)
+            checked.append(check(caches) if check else True)
+    finally:
+        del model.decode_step        # the class's method again (a bound one would hold a cycle)
+    return {"prefill": logits, "logits": torch.stack(seen), "greedy": torch.cat(greedy, 1),
+            "fed": torch.cat(fed, 1), "prefill_s": prefill_s, "step_s": step_s,
+            "placed": checked, "caches": caches}
+
+
+def caches_placed(mesh, caches) -> bool:
+    """Whether every cache and recurrent state in ``caches`` is a DTensor
+    placed as ``cache_sharding_rules`` places it on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import sharding as SH
+
+    want = SH.cache_sharding_rules(mesh, caches)
+    return all(isinstance(c, DTensor) and tuple(c.placements) == w.placements
+               for entry, went in zip(caches, want) for kind, state in entry.items()
+               for (_, c), w in zip(state.items(), went[kind].values()))
+
+
+def stage_gloo_collectives() -> list:
+    """Route DTensor's all-gathers, reduce-scatters and all-to-alls of CUDA
+    tensors through host memory, for ranks that share one card over gloo:
+    gloo all-reduces CUDA tensors but crashes gathering them into one
+    tensor (torch 2.11 on the card), and has no all-to-all; NCCL refuses
+    two ranks on one device.  Phase 11 (a)'s combine stages through the host
+    for the same reason.  Each wrapped function is replaced wherever
+    ``torch.distributed`` holds it; returns the names wrapped."""
+    import torch
+    import torch.distributed._functional_collectives as funcol
+
+    def staged(fn):
+        def run(t, *args, **kwargs):
+            if not t.is_cuda:
+                return fn(t, *args, **kwargs)
+            out = fn(t.cpu(), *args, **kwargs)
+            return (out.wait() if hasattr(out, "wait") else out).to(t.device)
+        return run
+
+    def gather(t, gather_dim: int, mesh, dim: int):
+        """An all-gather along ``gather_dim`` over the mesh dim ``dim``, as
+        a sum of zero-padded copies (gloo's CUDA all-reduce)."""
+        rank, world, n = mesh.get_local_rank(dim), mesh.size(dim), t.shape[gather_dim]
+        shape = list(t.shape)
+        shape[gather_dim] *= world
+        out = t.new_zeros(shape)
+        out.narrow(gather_dim, rank * n, n).copy_(t)
+        done = funcol.all_reduce(out, "sum", (mesh, dim))
+        return done.wait() if hasattr(done, "wait") else done
+
+    replaced = {}             # id of the original -> (original, wrapper)
+    for op in ("all_gather", "reduce_scatter"):
+        for form in ("tensor", "single", "tensor_autograd", "single_autograd"):
+            fn = getattr(funcol, f"{op}_{form}", None)
+            if fn is not None:
+                replaced[id(fn)] = (fn, staged(fn))
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim, *rest, **kw):
+        full = gather(input, gather_dim, mesh, mesh_dim)
+        return full.chunk(mesh.size(mesh_dim), dim=shard_dim)[mesh.get_local_rank(mesh_dim)]
+
+    import torch.distributed.tensor._collective_utils as cu
+    if hasattr(cu, "shard_dim_alltoall"):
+        replaced[id(cu.shard_dim_alltoall)] = (cu.shard_dim_alltoall, alltoall)
+    names = set()
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("torch.distributed"):
+            for attr, value in list(vars(mod).items()):
+                if id(value) in replaced and replaced[id(value)][0] is value:
+                    setattr(mod, attr, replaced[id(value)][1])
+                    names.add(f"{mod.__name__}.{attr}")
+    return sorted(names)
+
+
+def mesh_serve_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 11 (d), in a process of its own: a gloo group of
+    ``world`` ranks sharing the card (as phase 11 (a)'s), the (2, 2) mesh,
+    and for each arch the model whole from seed 0, its weights placed by
+    ``shard_model`` with ``serve_rules`` (as the dry-run places a serving
+    cell's), the prompts by ``batch_shardings``; after the prefill and after
+    every step each cache must be a DTensor placed by
+    ``cache_sharding_rules``.  Writes ``rank<rank>.pt``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import serve_rules, shard_model
+
+    faulthandler.enable()               # a crash in a collective shows its stack
+    tmp = Path(tmp)
+    spec = json.loads((tmp / "spec.json").read_text())
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'rendezvous'}", rank=rank,
+                            world_size=world)
+    out: dict = {}
+    try:
+        mesh = init_device_mesh(dev.type, tuple(spec["shape"]), mesh_dim_names=("data", "model"))
+        if dev.type == "cuda":
+            out["staged"] = stage_gloo_collectives()
+        b, prompt, steps = spec["traffic"]
+        for arch in spec["archs"]:
+            for dtype in MESH_SERVE_DTYPES:
+                cfg, model = mesh_serve_model(arch, spec["reduced"], dtype, dev)
+                shard_model(model, mesh, serve_rules(cfg, tp=mesh.size(1)) or None)
+                batch = mesh_serve_inputs(cfg, b, prompt, dev)
+                batch = SH.place(batch, SH.batch_shardings(mesh, batch))
+                feed = torch.load(tmp / f"feed_{arch}_{dtype}.pt")
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                with mesh:
+                    run = mesh_serve_run(model, cfg, batch, steps, feed,
+                                         lambda caches: caches_placed(mesh, caches))
+                del run["caches"]
+                run["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+                                  else 0.0)
+                out[arch, dtype] = run
+                del model, batch
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        dist.barrier()
+        torch.save(out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serve_reckoning(cfg, b: int, prompt: int, steps: int) -> dict:
+    """The dry-run's per-rank peak (GB) of phase 11 (d)'s prefill and of a
+    decode step at its last position, on a (2, 2) mesh of a ``fake`` group
+    of 4 ranks, ``meta`` tensors placed as the ranks place theirs."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import fake_group, run_cell
+
+    # the encoder-decoder's cells split one length into frames and tokens
+    # (steps.enc_len_for): its decode cell's self cache is 2P long, not P + S
+    seq = 2 * prompt if cfg.is_encdec else prompt
+    out = {}
+    with fake_group(4):
+        mesh = init_device_mesh("cpu", MESH_SERVE_SHAPE, mesh_dim_names=("data", "model"))
+        for kind, length in (("prefill", seq), ("decode", seq if cfg.is_encdec
+                                                  else prompt + steps)):
+            rec = run_cell(cfg, ShapeConfig(f"mesh_{kind}", length, b, kind), mesh, "2x2",
+                           verbose=False)
+            out[kind] = rec["memory"]["peak_resident_bytes"] / 1e9
+    return out
+
+
+def rel_by_step(run: dict, ref: dict) -> list:
+    """The prefill's and each step's largest logit error of ``run`` against
+    ``ref``, over ``ref``'s largest logit."""
+    scale = max(float(ref["prefill"].abs().max()), float(ref["logits"].abs().max()))
+    return [float((run["prefill"] - ref["prefill"]).abs().max()) / scale] + [
+        float((a - b).abs().max()) / scale for a, b in zip(run["logits"], ref["logits"])]
+
+
+def mesh_serve(dev, reduced: bool) -> dict:
+    """Phase 11 (d): each of MESH_SERVE_ARCHS served unsharded on the card
+    (``mesh_serve_run``) in bfloat16 (its own greedy tokens) and in float32
+    (the same weights, fed the bfloat16 run's tokens), then in both dtypes
+    on a MESH_SERVE_SHAPE mesh of ranks spawned here that share the card
+    over gloo (``mesh_serve_rank``), fed the same tokens.  Every rank's
+    float32 prefill and step logits within F32_HANDOFF_REL of the
+    unsharded float32 run's largest logit; its bfloat16 ones, at the
+    prefill and at each step, within HANDOFF_REL of the unsharded float32
+    run's or no farther from them than MESH_BF16_RATIO times the unsharded
+    bfloat16 run's (bfloat16's own rounding); in both dtypes the first
+    step's greedy tokens the unsharded run's; every cache placed by
+    ``cache_sharding_rules`` after the prefill and each step; each rank's
+    peak allocation beside the dry-run's reckoning."""
+    import dataclasses
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    b, prompt, steps = MESH_SERVE_TRAFFIC_REDUCED if reduced else MESH_SERVE_TRAFFIC
+    world = MESH_SERVE_SHAPE[0] * MESH_SERVE_SHAPE[1]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_serve_"))
+    procs: list = []
+    record: dict = {"shape": list(MESH_SERVE_SHAPE), "batch": b, "prompt": prompt,
+                    "steps": steps}
+    try:
+        refs, reckoned, encdec = {}, {}, {}
+        for arch in MESH_SERVE_ARCHS:
+            feed = None
+            for dtype in ("bfloat16", "float32"):        # float32 decodes bfloat16's tokens
+                cfg, model = mesh_serve_model(arch, reduced, dtype, dev)
+                refs[arch, dtype] = run = mesh_serve_run(
+                    model, cfg, mesh_serve_inputs(cfg, b, prompt, dev), steps, feed)
+                feed = run["fed"]
+                del run["caches"]
+                torch.save(feed, tmp / f"feed_{arch}_{dtype}.pt")
+                del model
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            encdec[arch] = cfg.is_encdec
+            reckoned[arch] = mesh_serve_reckoning(dataclasses.replace(cfg, dtype="bfloat16"), b,
+                                                  prompt, steps)
+        (tmp / "spec.json").write_text(json.dumps({
+            "device": dev.type, "shape": list(MESH_SERVE_SHAPE), "archs": list(MESH_SERVE_ARCHS),
+            "traffic": [b, prompt, steps], "reduced": reduced}))
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_serve_rank, args=(r, world, str(tmp)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_SERVE_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0))
+        ranks_s = time.perf_counter() - t0
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        if alive:
+            raise RuntimeError(f"phase 11 (d): ranks {alive} still running after "
+                               f"{MESH_SERVE_TIMEOUT} s")
+        failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
+        if failed:
+            raise RuntimeError(f"phase 11 (d): ranks exited with {failed}")
+        ranks = [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    record["ranks_s"] = ranks_s
+    for arch in MESH_SERVE_ARCHS:
+        f32 = refs[arch, "float32"]
+        # each step's bfloat16 limit: against the float32 run, MESH_BF16_RATIO
+        # times the unsharded bfloat16 run's distance from it, or HANDOFF_REL
+        own = rel_by_step(refs[arch, "bfloat16"], f32)
+        limits = {"float32": [F32_HANDOFF_REL] * (steps + 1),
+                  "bfloat16": [max(HANDOFF_REL, MESH_BF16_RATIO * e) for e in own]}
+        record[arch] = {"reckoned_peak_gb": reckoned[arch], "bf16_from_f32_by_step": own}
+        for dtype in MESH_SERVE_DTYPES:
+            ref = refs[arch, dtype]
+            by_step = [0.0] * (steps + 1)    # the prefill's, then each step's, worst of the ranks
+            for r, out in enumerate(ranks):
+                run = out[arch, dtype]
+                mine = rel_by_step(run, f32)
+                by_step = [max(x, y) for x, y in zip(by_step, mine)]
+                if not (torch.isfinite(run["logits"]).all()
+                        and all(e <= lim for e, lim in zip(mine, limits[dtype]))):
+                    raise RuntimeError(
+                        f"phase 11 (d) {arch} {dtype}, rank {r}: logits from the unsharded "
+                        f"float32 run's, over its largest, {mine} (the prefill's, then each "
+                        f"step's) past the limits {limits[dtype]} (the unsharded bfloat16 run "
+                        f"is {own} from it)")
+                if not torch.equal(run["greedy"][:, 0], ref["greedy"][:, 0]):
+                    raise RuntimeError(f"phase 11 (d) {arch} {dtype}, rank {r}: the first "
+                                       "step's tokens are not the unsharded run's")
+                if not all(run["placed"]):
+                    raise RuntimeError(f"phase 11 (d) {arch} {dtype}, rank {r}: a cache left "
+                                       f"its cache_sharding_rules placement ({run['placed']})")
+            first = ranks[0][arch, dtype]
+            rec = {"rel_err_by_step": by_step, "limit_by_step": limits[dtype],
+                   "peak_gb_by_rank": [o[arch, dtype]["peak_gb"] for o in ranks],
+                   "prefill_s": first["prefill_s"], "step_ms": [t * 1e3 for t in first["step_s"]],
+                   "ref_prefill_s": ref["prefill_s"],
+                   "ref_step_ms": [t * 1e3 for t in ref["step_s"]],
+                   "first_tokens_equal": bool(torch.equal(first["greedy"][:, 0],
+                                                          ref["greedy"][:, 0])),
+                   "tokens_agree": int((first["greedy"] == ref["greedy"]).sum()),
+                   "tokens": int(ref["greedy"].numel())}
+            record[arch][dtype] = rec
+            what = "frames and tokens" if encdec[arch] else "tokens"
+            print(f"phase 11 (d): {arch} in {dtype} on a {MESH_SERVE_SHAPE} mesh of {world} "
+                  f"gloo ranks, {b} x {prompt} {what}, {steps} steps: logits from the unsharded "
+                  "float32 run's, over its largest (the prefill's, then each step's): "
+                  + ", ".join(f"{e:.2e}" for e in by_step) + " (limits "
+                  + ", ".join(f"{e:.2e}" for e in limits[dtype])
+                  + "; the unsharded bfloat16 run's: " + ", ".join(f"{e:.2e}" for e in own)
+                  + "); the "
+                  f"first step's tokens equal: {rec['first_tokens_equal']}, "
+                  f"{rec['tokens_agree']} of {rec['tokens']} greedy tokens equal; every cache "
+                  f"placed by cache_sharding_rules after the prefill and each step; rank 0's "
+                  f"prefill {first['prefill_s']:.3f} s, a step's median "
+                  f"{statistics.median(first['step_s']) * 1e3:.3f} ms (unsharded "
+                  f"{ref['prefill_s']:.3f} s, {statistics.median(ref['step_s']) * 1e3:.3f} ms); "
+                  "the ranks' peak allocations "
+                  + ", ".join(f"{g:.3f}" for g in rec["peak_gb_by_rank"])
+                  + f" GB (the dry-run's bfloat16 reckoning {reckoned[arch]['prefill']:.3f} "
+                  f"for the prefill, {reckoned[arch]['decode']:.3f} for a decode step)",
+                  flush=True)
+    return record
+
+
 def mesh_steps_phase(dev, reduced: bool = False) -> tuple:
-    """Phase 11: (a) the worker mesh (:func:`mesh_iterations`); (b) and (c)
+    """Phase 11: (a) the worker mesh (:func:`mesh_iterations`); (b)-(d)
     the step builders at full width (:func:`step_train`,
-    :func:`step_serve`), which launch none of the four kernels, as the JAX
-    package's reach no Pallas kernel: their counters must stay at 0.
+    :func:`step_serve`, :func:`mesh_serve`), which launch none of the four
+    kernels, as the JAX package's reach no Pallas kernel: their counters
+    must stay at 0 (the spawned ranks of (d) launch none either: they
+    build no kernel).
     Returns (a)'s launches by record name, and the phase's record."""
     from repro_torch.kernels import ops
 
@@ -3219,10 +3651,13 @@ def mesh_steps_phase(dev, reduced: bool = False) -> tuple:
     t0 = time.perf_counter()
     record["serve_steps"] = step_serve(dev, reduced)
     record["serve_steps_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["mesh_serve"] = mesh_serve(dev, reduced)
+    record["mesh_serve_s"] = time.perf_counter() - t0
     counts, designs = ops.launch_counts(), ops.design_counts()
-    expect("phase 11 (b), (c): kernel launches of the step builders", counts,
+    expect("phase 11 (b)-(d): kernel launches of the step builders", counts,
            dict.fromkeys(counts, 0))
-    expect("phase 11 (b), (c): designs launched by the step builders", designs,
+    expect("phase 11 (b)-(d): designs launched by the step builders", designs,
            {k: dict.fromkeys(v, 0) for k, v in designs.items()})
     record["step_launches"] = counts
     return launches, record

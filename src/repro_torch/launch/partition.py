@@ -11,11 +11,17 @@ names, major to minor; trailing ``None``s are trimmed, as JAX trims them.
 dim on two mesh axes is ``Shard(d)`` on both, which DTensor splits in mesh
 order, the JAX package's major-to-minor split when the names come in mesh
 order (they always do from :data:`DEFAULT_RULES`).
+
+On a mesh the models compute on each rank's shards, as GSPMD partitions
+the JAX package's: :func:`on_local_shards` runs a function on the local
+tensors of its arguments, placed by :func:`shards` (the batch, and a head,
+expert or feature dim), with a :class:`ModelAxis` for the collectives it
+needs; :func:`row_split` is an output projection's product; decode states
+are placed by :func:`cache_spec`.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
@@ -24,8 +30,9 @@ from torch.distributed.device_mesh import DeviceMesh, _mesh_resources
 from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 
 __all__ = ["DEFAULT_RULES", "Spec", "resolve_axes", "mesh_sizes", "placements", "mentions",
-           "current_mesh", "constrain", "split_heads", "gathered", "local", "on_replicated",
-           "on_batch_shards"]
+           "current_mesh", "constrain", "split_heads", "gathered", "local", "cache_spec",
+           "cache_placements", "whole_grads", "row_split", "place_local", "mesh_of", "shards",
+           "ModelAxis", "PLAIN", "on_local_shards"]
 
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
@@ -111,6 +118,30 @@ def mentions(spec: Spec, axis: str) -> bool:
     return False
 
 
+def cache_spec(shape: Sequence[int], mesh: Union[DeviceMesh, Mapping[str, int]],
+               rules: Optional[Dict] = None) -> Spec:
+    """The spec of one decode-state tensor (``sharding.cache_sharding_rules``'
+    rule for a leaf).  Attention KV caches (B, T, KV, hd): batch over (pod,
+    data); KV heads on ``model`` when divisible, else head_dim on ``model``,
+    else replicated.  A 4-D or 3-D recurrent state, (B, H, N, P) or (B, H,
+    P), has its dim 2 on ``model`` by the same rule; 2-D states the batch
+    only."""
+    if len(shape) == 4:            # (B, T, KV, hd) or (B, H, N, P)
+        axes = ("batch", None, "heads", "head_dim_tp")
+    elif len(shape) == 3:          # (B, H, P) / (B, conv, C)
+        axes = ("batch", None, "heads")
+    elif len(shape) == 2:
+        axes = ("batch", None)
+    else:
+        axes = ("batch",) + (None,) * (len(shape) - 1)
+    local_rules = {**(rules or {}), "heads": "model", "head_dim_tp": None}
+    spec = resolve_axes(axes, shape, mesh, local_rules)
+    if len(shape) == 4 and not mentions(spec, "model"):
+        local_rules = {**(rules or {}), "heads": None, "head_dim_tp": "model"}
+        spec = resolve_axes(axes, shape, mesh, local_rules)
+    return spec
+
+
 def placements(spec: Spec, mesh: DeviceMesh) -> Tuple[Placement, ...]:
     """DTensor placements of ``spec`` on ``mesh``, one per mesh dim."""
     names = list(mesh.mesh_dim_names or ())
@@ -181,67 +212,223 @@ def gathered(x: torch.Tensor) -> torch.Tensor:
 
 def local(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's whole value as a plain tensor on this rank (gathered
-    first); a plain tensor as it is.  Decode caches are kept so."""
+    first); a plain tensor as it is."""
     return gathered(x).to_local() if isinstance(x, DTensor) else x
 
 
-def on_replicated(fn: Callable) -> Callable:
-    """``fn`` run on plain tensors: its DTensor arguments gathered and
-    unwrapped (:func:`local`), its tensor result wrapped back as a DTensor
-    replicated on their mesh; with no DTensor argument, ``fn`` itself.  For
-    a core of many small operations that DTensor cannot propagate on every
-    torch release (the attention's einsums, masks and running softmax), as
-    GSPMD gathers around an operation it does not partition."""
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        mesh = next((a.device_mesh for a in (*args, *kwargs.values())
-                     if isinstance(a, DTensor)), None)
-        if mesh is None:
-            return fn(*args, **kwargs)
-        out = fn(*map(local, args), **{k: local(v) for k, v in kwargs.items()})
-        return DTensor.from_local(out, mesh, (Replicate(),) * mesh.ndim, run_check=False)
-    return run
+def cache_placements(mesh: DeviceMesh, shape: Sequence[int]) -> Tuple[Placement, ...]:
+    """The DTensor placements :func:`cache_spec` gives a decode state of
+    ``shape`` on ``mesh``."""
+    return placements(cache_spec(shape, mesh), mesh)
 
 
-def on_batch_shards(*batched: int) -> Callable:
-    """A decorator: ``fn`` run on this rank's share of the batch, as a
-    ``shard_map`` over the batch axes.  The positional arguments at the
-    indices ``batched`` lead with the batch dim: when one of them is a
-    DTensor, each keeps only its split of dim 0 and is replicated on every
-    other mesh dim (a plain one counts as replicated and is split so), the
-    other DTensor arguments are replicated, and ``fn`` runs on the local
-    tensors; each tensor it returns, batch first, is wrapped back as a
-    DTensor split as the batch is.  The other arguments' gradients are
-    partial sums over the batch's mesh dims.  For a block of operations
-    that needs no collective, run locally instead of one DTensor dispatch
-    each: a loop over positions or chunks, and operations some torch
-    releases have no sharding rule for (``flip`` in ``cumsum``'s backward,
-    the padding of a causal convolution).  With no DTensor among the
-    batched arguments, ``fn`` itself."""
-    def decorate(fn: Callable) -> Callable:
-        @functools.wraps(fn)
-        def run(*args):
-            lead = next((args[i] for i in batched if isinstance(args[i], DTensor)), None)
-            if lead is None:
-                return fn(*args)
-            mesh = lead.device_mesh
-            split = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in lead.placements)
-            partial = tuple(Partial() if p.is_shard(0) else Replicate() for p in split)
-            whole = (Replicate(),) * mesh.ndim
+def whole_grads(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; on a mesh its gradient is brought to ``x``'s own
+    placements (summed, where it comes back a partial sum) before it flows
+    on.  Models call it on the normed activations that column-split
+    projections read, where Megatron's ``f`` operator all-reduces the
+    gradient: DTensor would otherwise carry the partial sum back into the
+    row-split projection before it and, to avoid reducing it, gather that
+    projection's weight and repeat its product on every rank."""
+    if not (isinstance(x, DTensor) and x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements, run_check=False)
 
-            def unwrap(i, a):
-                if i in batched:
-                    if not isinstance(a, DTensor):
-                        a = DTensor.from_local(a, mesh, whole, run_check=False)
-                    return a.redistribute(mesh, split).to_local()
-                if isinstance(a, DTensor):
-                    return a.redistribute(mesh, whole).to_local(grad_placements=partial)
-                return a
 
-            def wrap(t):
-                if isinstance(t, torch.Tensor):
-                    return DTensor.from_local(t, mesh, split, run_check=False)
-                return type(t)(map(wrap, t))
-            return wrap(fn(*(unwrap(i, a) for i, a in enumerate(args))))
-        return run
-    return decorate
+def row_split(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a weight whose rows (the contracted dim) the ``model``
+    axis splits, as a block's output projection's: on a mesh each rank
+    multiplies its columns of ``h`` by its rows of ``w`` and the partial
+    products are summed over the axis in ``h``'s dtype, as XLA reduces the
+    JAX package's partitioned dot; the result is split over the batch
+    alone.  Plain tensors: ``h @ w``."""
+    mesh = mesh_of(h, w)
+    rows = None if mesh is None else shards(mesh, w.shape, batch=None, model=0)
+    if mesh is None or all(p.is_replicate() for p in rows):
+        return h @ w
+    cols = shards(mesh, h.shape, model=h.ndim - 1)
+    batch = shards(mesh, h.shape)
+    partial = tuple(Partial() if r.is_shard() else b for r, b in zip(rows, batch))
+    out = on_local_shards(lambda axis, h, w: h @ w, (h, w), (cols, rows), partial)
+    return out.redistribute(mesh, batch)
+
+
+def place_local(t: torch.Tensor, mesh: DeviceMesh, where: Sequence[Placement]) -> DTensor:
+    """``t``, the same whole value on every rank, as a DTensor placed at
+    ``where``: each rank keeps its own shard (a copy), with no collective."""
+    whole = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    shard = whole.redistribute(mesh, tuple(where)).to_local().clone()
+    return DTensor.from_local(shard, mesh, tuple(where), run_check=False)
+
+
+def mesh_of(*xs) -> Optional[DeviceMesh]:
+    """The mesh of the first DTensor among ``xs``, or None."""
+    return next((x.device_mesh for x in xs if isinstance(x, DTensor)), None)
+
+
+def shards(mesh: DeviceMesh, shape: Sequence[int], batch: Optional[int] = 0,
+           model: Optional[int] = None) -> Tuple[Placement, ...]:
+    """Placements on ``mesh`` of a tensor of ``shape``: dim ``batch`` split
+    over ("pod", "data") as ``resolve_axes`` splits a batch (each axis kept
+    while it divides), dim ``model`` over "model" when it divides; every
+    other mesh dim replicated."""
+    names = list(mesh.mesh_dim_names or ())
+    sizes = mesh_sizes(mesh)
+    out: list = [Replicate()] * len(names)
+    if batch is not None:
+        ways = 1
+        for a in ("pod", "data"):
+            if a in sizes and shape[batch] % (ways * sizes[a]) == 0:
+                out[names.index(a)] = Shard(batch)
+                ways *= sizes[a]
+    if model is not None and "model" in sizes and shape[model] % sizes["model"] == 0:
+        out[names.index("model")] = Shard(model)
+    return tuple(out)
+
+
+class ModelAxis:
+    """The ``model`` mesh axis seen from inside a function that
+    :func:`on_local_shards` runs on local tensors: this rank's ``index`` on
+    it, its ``size``, and its collectives on tensors whose dim 0 is the
+    batch, split as ``batch`` places it; and the batch's split itself
+    (``batch_ways`` ranks, this one ``batch_index``, in the order of the
+    batch's rows).  ``PLAIN`` (no mesh) has indices 0, sizes 1 and
+    identities for collectives, so one function serves both."""
+
+    def __init__(self, mesh: Optional[DeviceMesh] = None,
+                 batch: Sequence[Placement] = ()):
+        self.mesh = mesh
+        names = list(mesh.mesh_dim_names or ()) if mesh is not None else []
+        self.dim = names.index("model") if "model" in names else None
+        self.size = mesh.size(self.dim) if self.dim is not None else 1
+        self.index = mesh.get_local_rank(self.dim) if self.size > 1 else 0
+        # the batch's placements with the model dim replicated
+        self._rest = tuple(Replicate() if i == self.dim else p for i, p in enumerate(batch))
+        self.batch_ways, self.batch_index = 1, 0
+        for i, p in enumerate(self._rest):          # major to minor, as DTensor splits
+            if p.is_shard(0):
+                self.batch_ways *= mesh.size(i)
+                self.batch_index = self.batch_index * mesh.size(i) + mesh.get_local_rank(i)
+
+    def stack_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """Every batch shard's ``t`` stacked in the batch's order: (batch_ways,
+        *t.shape), the same on every rank (an all-gather)."""
+        if self.batch_ways == 1:
+            return t[None]
+        d = DTensor.from_local(t[None], self.mesh, self._rest, run_check=False)
+        return d.redistribute(self.mesh, (Replicate(),) * self.mesh.ndim).to_local()
+
+    def _over_batch(self, p: Placement) -> Tuple[Placement, ...]:
+        return tuple(p if q.is_shard(0) else Replicate() for q in self._rest)
+
+    def scatter_batch(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of every batch shard's ``t``, each keeping its own split
+        of ``dim`` (a reduce-scatter over the batch's ranks)."""
+        if self.batch_ways == 1:
+            return t
+        d = DTensor.from_local(t, self.mesh, self._over_batch(Partial()), run_check=False)
+        return d.redistribute(self.mesh, self._over_batch(Shard(dim))).to_local()
+
+    def join_batch(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every batch shard's split of ``dim`` joined (the all-gather that
+        undoes :meth:`scatter_batch`'s split).  Each rank may read its own
+        part of the result, so the gradient is summed over the batch's
+        ranks (a reduce-scatter)."""
+        if self.batch_ways == 1:
+            return t
+        d = DTensor.from_local(t, self.mesh, self._over_batch(Shard(dim)), run_check=False)
+        return d.redistribute(self.mesh, self._over_batch(Replicate())).to_local(
+            grad_placements=self._over_batch(Partial()))
+
+    def span(self, n: int, split: bool = True) -> Tuple[int, int]:
+        """This rank's [start, stop) of ``n`` items split evenly over the
+        axis (all of them when not ``split``)."""
+        if not split or self.size == 1:
+            return 0, n
+        part = n // self.size
+        return self.index * part, (self.index + 1) * part
+
+    def _with(self, p: Placement) -> Tuple[Placement, ...]:
+        return tuple(p if i == self.dim else q for i, q in enumerate(self._rest))
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the axis of each rank's ``t`` (an all-reduce)."""
+        if self.size == 1:
+            return t
+        d = DTensor.from_local(t, self.mesh, self._with(Partial()), run_check=False)
+        return d.redistribute(self.mesh, self._rest).to_local()
+
+    def scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the axis of each rank's ``t``, each rank keeping its
+        split of ``dim`` (a reduce-scatter)."""
+        if self.size == 1:
+            return t
+        d = DTensor.from_local(t, self.mesh, self._with(Partial()), run_check=False)
+        return d.redistribute(self.mesh, self._with(Shard(dim))).to_local()
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Each rank's ``t`` joined along ``dim`` in rank order (an
+        all-gather)."""
+        if self.size == 1:
+            return t
+        d = DTensor.from_local(t, self.mesh, self._with(Shard(dim)), run_check=False)
+        return d.redistribute(self.mesh, self._rest).to_local()
+
+
+PLAIN = ModelAxis()
+
+
+def on_local_shards(fn: Callable, args: Sequence, where: Sequence, out: Union[Sequence, Placement,
+                                                                          None],
+                    batch: Optional[Sequence[Placement]] = None):
+    """``fn(axis, *locals)`` run on each rank's shards, as a ``shard_map``
+    over the batch and a head, expert or feature dim.
+
+    ``where[i]`` places ``args[i]`` before the call: a tuple of placements
+    (the argument, a plain tensor counted as replicated, is redistributed
+    there and handed over as its local tensor) or None (handed over as it
+    is).  ``out`` places what ``fn`` returns, a tensor or a tuple of them
+    (a tuple of placements each, or None for a value handed back as it
+    is), as DTensors on the same mesh: ``Partial()`` where each rank holds
+    a partial sum.  An argument's gradient is a partial sum over every mesh
+    dim that splits the computation (a dim that some argument or result is
+    not replicated on) and that the argument is replicated on.  ``axis`` is the
+    :class:`ModelAxis` of the batch placements ``batch`` (by default the
+    first placed argument's, batch on dim 0).  With no DTensor among the
+    placed arguments, ``fn(PLAIN, *args)``: the plain path, untouched.
+    """
+    mesh = mesh_of(*(a for a, w in zip(args, where) if w is not None))
+    if mesh is None:
+        return fn(PLAIN, *args)
+    placed = [w for w in where if w is not None]
+
+    def leaves(w) -> list:      # the placement tuples of a (nested) ``out``
+        if w is None:
+            return []
+        if isinstance(w[0], Placement):
+            return [w]
+        return [x for v in w for x in leaves(v)]
+
+    split = {i for w in placed + leaves(out) for i, p in enumerate(w) if not p.is_replicate()}
+
+    def unwrap(a, w):
+        if w is None:
+            return a
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        grad = tuple(Partial() if i in split and p.is_replicate() else p
+                     for i, p in enumerate(w))
+        return a.redistribute(mesh, tuple(w)).to_local(grad_placements=grad)
+
+    if batch is None:
+        batch = tuple(p if p.is_shard(0) else Replicate() for p in placed[0])
+    result = fn(ModelAxis(mesh, batch), *(unwrap(a, w) for a, w in zip(args, where)))
+
+    def wrap(t, w):
+        if w is None or t is None:
+            return t
+        if isinstance(t, (tuple, list)):
+            return type(t)(wrap(x, v) for x, v in zip(t, w, strict=True))
+        return DTensor.from_local(t, mesh, tuple(w), run_check=False)
+
+    return wrap(result, out)

@@ -11,7 +11,7 @@ on the other dim of every ≥2-D parameter; batch over (pod, data).
 
 :class:`NamedSharding` stands in for JAX's: a mesh, a spec and the DTensor
 placements, with ``shard_shape``; :func:`place` does what
-``jax.device_put(tree, shardings)`` does, by ``distribute_tensor``.
+``jax.device_put(tree, shardings)`` does, each rank keeping its shard.
 Low-level resolution lives in ``launch/partition.py``.
 """
 
@@ -22,10 +22,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Placement, distribute_tensor
+from torch.distributed.tensor import Placement
 
-from repro_torch.launch.partition import (DEFAULT_RULES, Spec, constrain, current_mesh,
-                                          mentions, mesh_sizes, placements, resolve_axes)
+from repro_torch.launch.partition import (DEFAULT_RULES, Spec, cache_spec, constrain,
+                                          current_mesh, mesh_sizes, place_local, placements,
+                                          resolve_axes)
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["DEFAULT_RULES", "resolve_axes", "constrain", "current_mesh", "NamedSharding",
@@ -93,37 +94,27 @@ def batch_shardings(mesh: DeviceMesh, abstract_batch, rules: Optional[Dict] = No
 
 
 def cache_sharding_rules(mesh: DeviceMesh, abstract_caches, rules: Optional[Dict] = None):
-    """Decode-state shardings.
+    """Decode-state shardings (``partition.cache_spec`` for every leaf).
 
     Attention KV caches (B, T, KV, hd): batch over (pod,data); KV heads on
     ``model`` when divisible, else head_dim on ``model``, else replicate.
-    SSM states (B, H, N, P) / (B, H, P): heads on ``model``.
-    Conv states and scalars: batch only.
+    Other 4-D and 3-D states split their dim 2 on ``model`` when divisible:
+    N of Mamba-2's (B, H, N, P) state, P of a (B, H, P) state, the
+    channels of a (B, conv, C) convolution state.  2-D states and scalars:
+    batch only.  The models keep their decode states so placed
+    (``models/lm.py``, ``models/encdec.py``).
     """
-    def sh(leaf):
-        shape = leaf.shape
-        if len(shape) == 4:            # (B, T, KV, hd) or (B, H, N, P)
-            axes = ("batch", None, "heads", "head_dim_tp")
-        elif len(shape) == 3:          # (B, H, P) / (B, conv, C)
-            axes = ("batch", None, "heads")
-        elif len(shape) == 2:
-            axes = ("batch", None)
-        else:
-            axes = ("batch",) + (None,) * (len(shape) - 1)
-        local = {**(rules or {}), "heads": "model", "head_dim_tp": None}
-        spec = resolve_axes(axes, shape, mesh, local)
-        if len(shape) == 4 and not mentions(spec, "model"):
-            local = {**(rules or {}), "heads": None, "head_dim_tp": "model"}
-            spec = resolve_axes(axes, shape, mesh, local)
-        return NamedSharding(mesh, spec)
-    return _tree_map(sh, abstract_caches, _is_tensor)
+    return _tree_map(lambda leaf: NamedSharding(mesh, cache_spec(leaf.shape, mesh, rules)),
+                     abstract_caches, _is_tensor)
 
 
 def place(tree, shardings):
     """A tensor tree as DTensors, each leaf by its :class:`NamedSharding`
-    (``jax.device_put(tree, shardings)``); the trees have the same form."""
+    (``jax.device_put(tree, shardings)``); the trees have the same form.
+    Every rank passes the same whole values, as a host array is passed to
+    ``device_put``, and keeps its own shard of each (no collective)."""
     if isinstance(tree, torch.Tensor):
-        return distribute_tensor(tree, shardings.mesh, shardings.placements)
+        return place_local(tree, shardings.mesh, shardings.placements)
     if isinstance(tree, dict):
         return {k: place(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

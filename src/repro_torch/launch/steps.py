@@ -17,19 +17,22 @@ mesh as DTensors, by :func:`train_state_shardings`' rules.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.nn.utils.stateless import _reparametrize_module
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.convert import group
 from repro_torch.launch import sharding as SH
-from repro_torch.launch.partition import gathered, local, mesh_sizes
+from repro_torch.launch.partition import (gathered, local, mesh_sizes, on_local_shards,
+                                          place_local, shards)
 from repro_torch.models import build_model
 from repro_torch.models.params import abstract, tree_bytes
 from repro_torch.optim.optimizer import Optimizer, make_optimizer
@@ -171,12 +174,14 @@ def train_state_shardings(cfg: ArchConfig, mesh: DeviceMesh, rules: Optional[Dic
 def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Optional[Dict] = None) -> nn.Module:
     """Replace every parameter of ``model`` by a DTensor placed by
     :func:`train_state_shardings`' parameter rules, in place; returns
-    ``model``."""
+    ``model``.  Every rank holds the same weights (the same seed, or the
+    same checkpoint) and keeps its own shard of each, with no collective
+    (:func:`~repro_torch.launch.partition.place_local`)."""
     shardings = _named(SH.param_shardings(model.specs(), mesh, rules))
     for name, p in list(model.named_parameters()):
         parent, _, attr = name.rpartition(".")
         sh = shardings[name]
-        placed = distribute_tensor(p.detach(), mesh, sh.placements)
+        placed = place_local(p.detach(), mesh, sh.placements)
         setattr(model.get_submodule(parent), attr,
                 nn.Parameter(placed, requires_grad=p.requires_grad))
     return model
@@ -185,6 +190,24 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, rules: Optional[Dict] = None
 # ---------------------------------------------------------------------------
 # Steps
 # ---------------------------------------------------------------------------
+
+def _gathered_over_batch(model: nn.Module):
+    """A context in which ``model``'s DTensor parameters are gathered over
+    the batch axes ("pod", "data") and keep their ``model`` split, as FSDP
+    gathers each weight before a microbatch's forward; their gradients flow
+    back to the sharded parameters (a reduce-scatter).  For plain
+    parameters, nothing.  A context and not ``torch.func.functional_call``,
+    which restores the parameters when the forward returns: the backward's
+    checkpointed recompute reads them again and must see the gathered ones."""
+    placed = {}
+    for name, p in model.named_parameters():
+        if isinstance(p, DTensor):
+            names = p.device_mesh.mesh_dim_names or ()
+            placed[name] = p.redistribute(p.device_mesh, tuple(
+                Replicate() if names[i] in ("pod", "data") else q
+                for i, q in enumerate(p.placements)))
+    return _reparametrize_module(model, placed) if placed else contextlib.nullcontext()
+
 
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh=None,
                      opt: Optional[Optimizer] = None):
@@ -195,7 +218,11 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh=None,
     The batch is split into ``accum`` microbatches as the JAX package
     splits it (``x.reshape(accum, B / accum, …)``); gradients accumulate in
     float32 and are divided by ``accum``; metrics are the mean loss and
-    the float32 norm of the averaged gradients.
+    the float32 norm of the averaged gradients.  On a mesh each
+    microbatch's forward runs on the weights gathered over the batch axes
+    (:func:`_gathered_over_batch`): DTensor would otherwise gather a small
+    microbatch's activations instead and repeat its work on every batch
+    rank.
     """
     opt = opt or make_optimizer(cfg.optimizer, lr=1e-4)
     accum = grad_accum_for(cfg, shape, mesh)
@@ -213,8 +240,9 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh=None,
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss_sum = None
         for i in range(accum):
-            loss = model.loss_fn({k: v[i] for k, v in mbs.items()})
-            grads = torch.autograd.grad(loss, params)
+            with _gathered_over_batch(model):      # the remat's recompute too
+                loss = model.loss_fn({k: v[i] for k, v in mbs.items()})
+                grads = torch.autograd.grad(loss, params)
             with torch.no_grad():
                 for a, g in zip(acc, grads):
                     a.add_(g.float())
@@ -236,7 +264,9 @@ def build_prefill_step(cfg: ArchConfig):
     """Returns ``prefill_step(model, batch, max_seq=None) -> (last-position
     logits, caches)``; ``max_seq`` sizes the attention caches for decoding
     on (the JAX package's step always takes the prompt's length, the
-    dry-run's shape)."""
+    dry-run's shape).  On a mesh the caches are DTensors placed by
+    :func:`~repro_torch.launch.sharding.cache_sharding_rules`, as
+    :func:`input_shardings` places a decode step's."""
     if cfg.is_encdec:
         @implicit_replication()
         def prefill_step(model, batch, max_seq=None):
@@ -253,15 +283,34 @@ def build_prefill_step(cfg: ArchConfig):
     return prefill_step
 
 
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the vocabulary of logits (B, V), as (B, 1) int32.  On
+    a mesh whose model axis splits the vocabulary each rank takes the best
+    of its own columns and the best of those is chosen over the axis, the
+    lowest index on a tie, as ``torch.argmax`` chooses."""
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    mesh, vocab = logits.device_mesh, logits.shape[-1]
+    batch = shards(mesh, logits.shape)
+    cols = shards(mesh, logits.shape, model=1)
+
+    def best(axis, lg):
+        val, idx = lg.max(dim=-1, keepdim=True)
+        if lg.shape[-1] == vocab:
+            return idx.to(torch.int32)
+        vals, idxs = axis.gather(val, 1), axis.gather(idx + axis.span(vocab)[0], 1)
+        return idxs.gather(1, vals.argmax(dim=-1, keepdim=True)).to(torch.int32)
+
+    return on_local_shards(best, (logits,), (cols,), batch)
+
+
 def build_decode_step(cfg: ArchConfig):
     """Returns ``decode_step(model, batch) -> (next token (B, 1) int32,
     caches)``: one greedy step; the caches are updated in place, as
-    ``decode_step`` updates them."""
+    ``decode_step`` updates them, and on a mesh keep their placements."""
     @implicit_replication()
     def decode_step(model, batch):
         logits, caches = model.decode_step(batch["token"], batch["caches"], int(batch["pos"]))
         # greedy next token, ready for the next iteration
-        # (an argmax over a vocab-sharded DTensor needs the logits gathered)
-        next_tok = torch.argmax(gathered(logits), dim=-1).to(torch.int32)[:, None]
-        return next_tok, caches
+        return greedy(logits), caches
     return decode_step

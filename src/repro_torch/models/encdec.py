@@ -34,10 +34,9 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.partition import constrain, gathered
-from repro_torch.launch.partition import local as plain
+from repro_torch.launch.partition import constrain
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _module, remat_apply
+from repro_torch.models.lm import _module, kv_cache, placed_zeros, remat_apply
 from repro_torch.models.params import ParamSpec, cast_specs, initialize
 
 __all__ = ["EncDecLM", "enc_block_specs", "dec_block_specs"]
@@ -152,24 +151,22 @@ class EncDecLM(nn.Module):
         logits = self.forward_train(batch)
         tgt = batch["labels"][:, 1:]
         lg = logits[:, :-1]
-        lse = torch.logsumexp(lg, dim=-1)
-        # DTensor's gather along a vocab-sharded dim fails: gather the logits first
-        gold = torch.gather(gathered(lg), -1, tgt[..., None].long())[..., 0]
-        return (lse - gold).mean()
+        return L.token_nll(lg, tgt).mean()
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, enc_len: int,
                    dtype: Optional[torch.dtype] = None) -> List[Dict[str, Dict[str, torch.Tensor]]]:
         """Per decoder layer, zeroed self-attention K/V of ``max_seq`` and
         cross K/V of ``enc_len`` positions, in ``dtype`` (the model's by
-        default)."""
+        default); under an ambient mesh DTensors placed by
+        ``launch.sharding.cache_sharding_rules``."""
         cfg = self.cfg
         dtype = dtype or self.cache_dtype()
 
         def zeros(t: int) -> Dict[str, torch.Tensor]:
             shape = (batch, t, cfg.num_kv_heads, cfg.head_dim)
-            return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+            return {"k": placed_zeros(shape, dtype, self.device),
+                    "v": placed_zeros(shape, dtype, self.device)}
 
         return [{"self": zeros(max_seq), "cross": zeros(enc_len)} for _ in range(cfg.num_layers)]
 
@@ -178,30 +175,25 @@ class EncDecLM(nn.Module):
                 max_seq: Optional[int] = None) -> Tuple[torch.Tensor, List]:
         """Encode + decoder prefill; returns last-token logits (B,
         vocab_padded) float32 and the caches, the self K/V padded to
-        ``max_seq`` (> S) so that decode can continue appending."""
+        ``max_seq`` (> S) so that decode can continue appending; on a mesh
+        DTensors placed by ``launch.sharding.cache_sharding_rules``."""
         cfg = self.cfg
         dt = self.cache_dtype()
         enc_out = self.encode(frames)
         x = L.embed_apply(self.embed, tokens)
-        s = tokens.shape[1]
         caches: List[Any] = []
         for p in self.dec:
             x = constrain(x, ("batch", None, None))
             h = L.apply_norm(p["norm1"], x)
-            x = x + L.attn_apply(p["self_attn"], h, cfg, causal=True, local=False)
-            k_self, v_self = map(plain, L.attn_prefill_kv(p["self_attn"], h, cfg))
-            k_x, v_x = map(plain, L.cross_kv(p["cross_attn"], enc_out, cfg))   # plain caches
+            y, k_self, v_self = L.attn_apply(p["self_attn"], h, cfg, causal=True, local=False,
+                                             return_kv=True)
+            x = x + y
+            k_x, v_x = L.cross_kv(p["cross_attn"], enc_out, cfg)
             x = x + L.cross_attn_apply(p["cross_attn"], L.apply_norm(p["norm_x"], x), k_x, v_x,
                                        cfg)
             x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["norm2"], x), cfg)
-            if max_seq is not None and max_seq > s:
-                pad = (0, 0, 0, 0, 0, max_seq - s)
-                k_self = torch.nn.functional.pad(k_self, pad)
-                v_self = torch.nn.functional.pad(v_self, pad)
-            caches.append({
-                "self": {"k": k_self.to(dt).contiguous(), "v": v_self.to(dt).contiguous()},
-                "cross": {"k": k_x.to(dt).contiguous(), "v": v_x.to(dt).contiguous()},
-            })
+            caches.append({"self": kv_cache(k_self, v_self, dt, max_seq=max_seq),
+                           "cross": kv_cache(k_x, v_x, dt)})
         x = L.apply_norm(self.dec_norm, x)
         logits = L.head_apply(self.embed, x[:, -1:], cfg)
         return logits[:, 0].float(), caches

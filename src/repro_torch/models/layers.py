@@ -28,10 +28,11 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.partition import gathered, on_replicated, split_heads
-from repro_torch.launch.partition import local as plain
+from repro_torch.launch.partition import (PLAIN, ModelAxis, gathered, mesh_of, on_local_shards,
+                                          row_split, shards, split_heads, whole_grads)
 from repro_torch.models.params import ParamSpec
 
 Params = Mapping[str, torch.Tensor]
@@ -53,7 +54,15 @@ def norm_spec(cfg: ArchConfig, d: Optional[int] = None) -> Dict[str, ParamSpec]:
 
 
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm, or layer norm where ``p`` has a bias; in float32, cast back."""
+    """RMS norm, or layer norm where ``p`` has a bias; in float32, cast back.
+    On a mesh a partial sum (a block's output added to the residual) is
+    reduced first, so that the norm, and the projections after it, see
+    whole values (DTensor would otherwise carry the partial through the
+    scaling and split the next matmul for it); the result's gradient is
+    reduced too (``partition.whole_grads``)."""
+    if isinstance(x, DTensor) and any(q.is_partial() for q in x.placements):
+        x = x.redistribute(x.device_mesh, tuple(Replicate() if q.is_partial() else q
+                                                for q in x.placements))
     xf = x.float()
     if "bias" in p:
         mu = xf.mean(-1, keepdim=True)
@@ -62,7 +71,7 @@ def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     else:
         ms = (xf * xf).mean(-1, keepdim=True)
         out = xf * torch.rsqrt(ms + eps) * p["scale"]
-    return out.to(x.dtype)
+    return whole_grads(out.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +162,26 @@ def _attend_block(q, k, kpos, qpos, causal: bool, window: int,
     return torch.where(mask[None, None], logits, torch.full_like(logits, -1e30))
 
 
-@on_replicated
+def _gqa_split(h: int, kvh: int, ways: int) -> Optional[str]:
+    """How ``ways`` ranks split the heads of a grouped-query attention:
+    ``"kv"`` (the query and KV heads both), ``"q"`` (the query heads; each
+    rank takes the KV heads its own query heads use, from KV heads
+    replicated on the axis) or None (neither: every rank has every head)."""
+    if ways == 1 or h % ways:
+        return None
+    if kvh % ways == 0:
+        return "kv"
+    local, groups = h // ways, h // kvh
+    return "q" if local % groups == 0 or groups % local == 0 else None
+
+
+def _kv_span(axis: ModelAxis, h: int, kvh: int) -> Tuple[int, int]:
+    """[first, last + 1) of the KV heads this rank's query heads use."""
+    q0, q1 = axis.span(h)
+    groups = h // kvh
+    return q0 // groups, (q1 - 1) // groups + 1
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0,
@@ -167,7 +195,30 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are never materialised at (S × T).  ``window > 0`` restricts each query
     to the previous ``window`` keys and the computation to the KV slice
     that covers them.  ``q_offset`` is the absolute position of q[0].
+
+    On a mesh each rank attends with its batch shard and its query heads
+    (:func:`_gqa_split`), as GSPMD partitions the JAX package's; the result
+    keeps that split.
     """
+    kw = dict(causal=causal, window=window, softcap=softcap, q_block=q_block,
+              kv_block=kv_block, q_offset=q_offset)
+    mesh = mesh_of(q, k, v)
+    if mesh is None:
+        return _blockwise_attention(q, k, v, **kw)
+    h, kvh = q.shape[2], k.shape[2]
+    split = _gqa_split(h, kvh, ModelAxis(mesh).size)
+    qp = shards(mesh, q.shape, model=2 if split else None)
+    kvp = shards(mesh, k.shape, model=2 if split == "kv" else None)
+
+    def attend(axis, q, k, v):
+        if split == "q":
+            k0, k1 = _kv_span(axis, h, kvh)
+            k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+        return _blockwise_attention(q, k, v, **kw)
+    return on_local_shards(attend, (q, k, v), (qp, kvp, kvp), qp)
+
+
+def _blockwise_attention(q, k, v, causal, window, softcap, q_block, kv_block, q_offset):
     b, s, h, hd = q.shape
     t = k.shape[1]
     groups = h // k.shape[2]
@@ -221,7 +272,6 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(blocks, dim=2).transpose(1, 2)     # (B, S, H, hd)
 
 
-@on_replicated
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: int, window: int = 0, softcap: float = 0.0,
                      rotating: bool = False) -> torch.Tensor:
@@ -232,14 +282,46 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     T = window holding the last T tokens; only its unwritten prefix is
     masked while pos < T.  Grouped-query attention folds the group into q,
     so K and V are read once, never repeated.
+
+    On a mesh each rank reads its own shard of a cache placed by
+    ``partition.cache_spec``, with q split as the cache is: KV heads on
+    ``model`` (each rank's query heads are those of its KV heads), or
+    head_dim on ``model`` (each rank's partial q·K sums are reduced over
+    the axis before the softmax), or neither.  A plain cache counts as
+    replicated.  The result is split over the batch, and over the query
+    heads where they divide the axis.
     """
+    kw = dict(window=window, softcap=softcap, rotating=rotating)
+    mesh = mesh_of(q, k_cache, v_cache)
+    if mesh is None:
+        return _decode_attention(PLAIN, q, k_cache, v_cache, pos, **kw)
+    k_cache, v_cache = (c if isinstance(c, DTensor) else
+                        DTensor.from_local(c, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+                        for c in (k_cache, v_cache))
+    where = tuple(k_cache.placements)
+    by_dim = any(p.is_shard(3) for p in where)
+    out = on_local_shards(
+        lambda axis, q, k, v: _decode_attention(axis, q, k, v, pos, by_dim=by_dim, **kw),
+        (q, k_cache, v_cache), (where,) * 3, where)
+    if by_dim:       # head_dim split: hand the heads over instead, where they divide
+        out = out.redistribute(mesh, shards(mesh, out.shape, model=2))
+    return out
+
+
+def _decode_attention(axis: ModelAxis, q, k_cache, v_cache, pos: int, window: int,
+                      softcap: float, rotating: bool, by_dim: bool = False) -> torch.Tensor:
+    """:func:`decode_attention` on local tensors; ``by_dim``: head_dim is
+    split over ``axis`` and the q·K sums are reduced over it."""
     b, _, h, hd = q.shape
     t = k_cache.shape[1]
     kvh = k_cache.shape[2]
     groups = h // kvh
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd * axis.size if by_dim else hd)
     qg = q.reshape(b, 1, kvh, groups, hd)
-    logits = torch.einsum("bokgd,btkd->bkgot", qg.float(), k_cache.float()) * scale
+    logits = torch.einsum("bokgd,btkd->bkgot", qg.float(), k_cache.float())
+    if by_dim:
+        logits = axis.sum(logits)
+    logits = logits * scale
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     idx = torch.arange(t, device=q.device)
@@ -260,8 +342,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 # ---------------------------------------------------------------------------
 
 def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, causal: bool,
-               local: bool, q_offset: int = 0) -> torch.Tensor:
-    """Full-sequence attention (train / prefill path)."""
+               local: bool, q_offset: int = 0, return_kv: bool = False):
+    """Full-sequence attention (train / prefill path); with ``return_kv``
+    also the rope'd K and V (B, S, KV, hd) it attended over, a prefill's
+    cache contents (the JAX package's prefill projects them once too: XLA
+    merges its two projections)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     tables = rope_tables(q_offset + torch.arange(s, device=x.device), cfg.head_dim,
@@ -271,15 +356,21 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, causal: bool,
     window = cfg.sliding_window if local else 0
     out = blockwise_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.logit_softcap)
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+    y = row_split(out.reshape(b, s, cfg.q_dim), p["wo"])
+    return (y, k, v) if return_kv else y
 
 
-def attn_prefill_kv(p: Params, x: torch.Tensor,
-                    cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Produce the (K, V) cache contents for a prefill segment."""
-    _, k, v = _project_qkv(p, x, cfg)
-    k = rope(k, torch.arange(x.shape[1], device=x.device), cfg.rope_theta)
-    return k, v
+def write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``cache[:, slot] = new[:, 0]`` in place, in the cache's dtype; on a
+    mesh into this rank's shard of the cache, ``new`` placed as it is."""
+    if isinstance(cache, DTensor):
+        mesh = cache.device_mesh
+        if not isinstance(new, DTensor):
+            new = DTensor.from_local(new, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        cache, new = cache.to_local(), new.redistribute(mesh, cache.placements).to_local()
+    elif isinstance(new, DTensor):
+        new = new.full_tensor()
+    cache[:, slot] = new[:, 0].to(cache.dtype)
 
 
 def attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Dict[str, torch.Tensor],
@@ -303,12 +394,12 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig, cache: Dict[str, to
     slot = (pos % t) if rotating else pos
     if not 0 <= slot < t:
         raise ValueError(f"position {pos} is outside a cache of {t}")
-    cache["k"][:, slot] = plain(k)[:, 0].to(cache["k"].dtype)    # caches are plain tensors
-    cache["v"][:, slot] = plain(v)[:, 0].to(cache["v"].dtype)
+    write_slot(cache["k"], k, slot)
+    write_slot(cache["v"], v, slot)
     window = cfg.sliding_window if local else 0
     out = decode_attention(q, cache["k"], cache["v"], pos, window=window,
                            softcap=cfg.logit_softcap, rotating=rotating)
-    y = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
+    y = row_split(out.reshape(b, 1, cfg.q_dim), p["wo"])
     return y, cache
 
 
@@ -326,7 +417,7 @@ def cross_attn_apply(p: Params, x: torch.Tensor, enc_k: torch.Tensor,
     b, s, _ = x.shape
     q = split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
     out = blockwise_attention(q, enc_k, enc_v, causal=False, window=0)
-    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+    return row_split(out.reshape(b, s, cfg.q_dim), p["wo"])
 
 
 def cross_kv(p: Params, enc_out: torch.Tensor,
@@ -343,7 +434,7 @@ def cross_attn_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
     b = x.shape[0]
     q = split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
     att = decode_attention(q, cache["k"], cache["v"], pos=cache["k"].shape[1] - 1)
-    return att.reshape(b, 1, cfg.q_dim) @ p["wo"]
+    return row_split(att.reshape(b, 1, cfg.q_dim), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -365,16 +456,17 @@ def mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+    """GELU is the tanh approximation, ``jax.nn.gelu``'s default.  The down
+    projection is ``partition.row_split``'s (its rows split on a mesh)."""
     if cfg.mlp_type == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return row_split(F.silu(x @ p["wg"]) * (x @ p["wu"]), p["wd"])
     if cfg.mlp_type == "geglu":
-        return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])) @ p["wd"]
+        return row_split(F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"]), p["wd"])
     if cfg.mlp_type == "squared_relu":
         h = F.relu(x @ p["wi"])
-        return (h * h) @ p["wd"]
+        return row_split(h * h, p["wd"])
     if cfg.mlp_type == "gelu":
-        return F.gelu(x @ p["wi"], approximate="tanh") @ p["wd"]
+        return row_split(F.gelu(x @ p["wi"], approximate="tanh"), p["wd"])
     raise ValueError(f"unknown mlp_type {cfg.mlp_type}")
 
 
@@ -391,8 +483,59 @@ def embed_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    # DTensor's rule for a lookup in a vocab-sharded table fails: gather the table
-    return F.embedding(tokens, gathered(p["embedding"]))
+    """The token rows of the embedding table.  On a mesh whose ``model``
+    axis splits the vocabulary, each rank looks up the tokens of its own
+    rows (zero for the others) and the rows are summed over the axis, as
+    GSPMD partitions the JAX package's lookup; otherwise over the table
+    gathered.  The result is split over the batch alone."""
+    table = p["embedding"]
+    mesh = mesh_of(table)
+    if mesh is None:
+        return F.embedding(tokens, table)
+    vocab = table.shape[0]
+    tp = shards(mesh, tokens.shape)
+    rows = shards(mesh, table.shape, batch=None, model=0)
+    if rows == (Replicate(),) * mesh.ndim:
+        # DTensor's rule for a lookup in a vocab-sharded table fails: gather the table
+        return F.embedding(tokens, gathered(table))
+
+    def look(axis, tok, tab):
+        v0, v1 = axis.span(vocab)
+        inside = (tok >= v0) & (tok < v1)
+        out = F.embedding(torch.where(inside, tok - v0, torch.zeros_like(tok)), tab)
+        return out * inside[..., None].to(out.dtype)
+
+    partial = tuple(Partial() if r.is_shard(0) else t for r, t in zip(rows, tp))
+    out = on_local_shards(look, (tokens, table), (tp, rows), partial)
+    return out.redistribute(mesh, tp)
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[target] of each position: logits (B, S, V)
+    float32, targets (B, S) integers.  On a mesh whose ``model`` axis splits
+    the vocabulary each rank takes the log-sum-exp and the target's logit
+    of its own columns, and both are combined over the axis (the JAX
+    package's loss is reduced so too): the logits are never gathered."""
+    mesh = mesh_of(logits)
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    vocab = logits.shape[-1]
+    rows = shards(mesh, targets.shape)
+    cols = shards(mesh, logits.shape, model=2)
+
+    def nll(axis, lg, tgt):
+        if lg.shape[-1] == vocab:
+            return torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, tgt[..., None].long())[..., 0]
+        v0, v1 = axis.span(vocab)
+        part = torch.logsumexp(lg, dim=-1)[..., None]
+        lse = torch.logsumexp(axis.gather(part, part.ndim - 1), dim=-1)
+        inside = (tgt >= v0) & (tgt < v1)
+        gold = torch.gather(lg, -1, torch.where(inside, tgt - v0, torch.zeros_like(tgt))[..., None]
+                            .long())[..., 0]
+        return lse - axis.sum(gold * inside.to(gold.dtype))
+
+    return on_local_shards(nll, (logits, targets), (cols, rows), rows)
 
 
 def head_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

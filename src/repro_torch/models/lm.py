@@ -43,19 +43,20 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.partition import constrain, gathered
-from repro_torch.launch.partition import local as plain
+from repro_torch.launch.partition import (cache_placements, constrain, current_mesh,
+                                          mesh_of, place_local)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import ParamSpec, cast_specs, initialize
 
 __all__ = ["LM", "Slot", "period_layout", "layer_slots", "block_specs", "shared_attn_specs",
-           "remat_apply"]
+           "remat_apply", "kv_cache", "placed_zeros"]
 
 Params = Dict[str, Any]
 
@@ -189,6 +190,56 @@ def remat_apply(fn, remat: bool, *args):
     return fn(*args)
 
 
+def kv_cache(k: torch.Tensor, v: torch.Tensor, dtype: torch.dtype, window: Optional[int] = None,
+             max_seq: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The decode cache {"k", "v"} of one attention application from the
+    K and V (B, S, KV, hd) it attended over, in ``dtype``: full length,
+    padded to ``max_seq`` (> S), or, for a window shorter than S, the last
+    ``window`` keys in rotating layout (slot = pos % window).  On a mesh
+    each rank keeps its shard, placed by ``partition.cache_spec``."""
+    s = k.shape[1]
+
+    def layout(t: torch.Tensor) -> torch.Tensor:
+        if window is not None and window < s:
+            t = torch.roll(t[:, -window:], s % window, dims=1)
+        elif max_seq is not None and max_seq > s:
+            t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, max_seq - s))
+        return t.to(dtype).contiguous()
+
+    mesh = mesh_of(k, v)
+    if mesh is None:
+        return {"k": layout(k), "v": layout(v)}
+    t = window if window is not None and window < s else max(s, max_seq or s)
+    where = cache_placements(mesh, (k.shape[0], t, *k.shape[2:]))
+    return {name: DTensor.from_local(layout(x.redistribute(mesh, where).to_local()), mesh, where,
+                                     run_check=False)
+            for name, x in (("k", k), ("v", v))}
+
+
+def placed_zeros(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """Zeros of ``shape``; under an ambient mesh a DTensor placed by
+    ``partition.cache_spec``, each rank allocating its shard alone."""
+    mesh = current_mesh()
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    where = cache_placements(mesh, shape)
+    local = list(shape)
+    for i, p in enumerate(where):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh, where,
+                              run_check=False)
+
+
+def placed_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A recurrent block's decode state, under an ambient mesh each tensor
+    placed by ``partition.cache_spec``."""
+    mesh = current_mesh()
+    if mesh is None:
+        return state
+    return {k: place_local(t, mesh, cache_placements(mesh, t.shape)) for k, t in state.items()}
+
+
 def _module(tree) -> nn.Module:
     """A dict of tensors as an ``nn.ParameterDict``; a dict of such dicts as
     an ``nn.ModuleDict``."""
@@ -284,16 +335,15 @@ class LM(nn.Module):
             logits = logits[:, batch["image_embeds"].shape[1]:]
         tgt = batch["labels"][:, 1:]
         lg = logits[:, :-1]
-        lse = torch.logsumexp(lg, dim=-1)
-        # DTensor's gather along a vocab-sharded dim fails: gather the logits first
-        gold = torch.gather(gathered(lg), -1, tgt[..., None].long())[..., 0]
-        return (lse - gold).mean()
+        return L.token_nll(lg, tgt).mean()
 
     # -- caches ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype: Optional[torch.dtype] = None
                    ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
         """Per-layer decode state: attention caches sized full or window (in
-        ``dtype``, the model's by default), recurrent states in float32."""
+        ``dtype``, the model's by default), recurrent states in float32.
+        Under an ambient mesh (``with mesh:``) each is a DTensor placed by
+        ``launch.sharding.cache_sharding_rules``."""
         cfg = self.cfg
         dtype = dtype or self.cache_dtype()
         dev = self.device
@@ -305,11 +355,11 @@ class LM(nn.Module):
             if slot.kind in ("attn_mlp", "attn_moe"):
                 entry["attn"] = self._attn_cache(batch, max_seq, slot.local, dtype)
             elif slot.kind == "mamba":
-                entry["mamba"] = SSM.mamba_init_state(cfg, batch, device=dev)
+                entry["mamba"] = placed_state(SSM.mamba_init_state(cfg, batch, device=dev))
             elif slot.kind == "mlstm":
-                entry["mlstm"] = SSM.mlstm_init_state(cfg, batch, device=dev)
+                entry["mlstm"] = placed_state(SSM.mlstm_init_state(cfg, batch, device=dev))
             elif slot.kind == "slstm":
-                entry["slstm"] = SSM.slstm_init_state(cfg, batch, device=dev)
+                entry["slstm"] = placed_state(SSM.slstm_init_state(cfg, batch, device=dev))
             caches.append(entry)
         return caches
 
@@ -320,8 +370,8 @@ class LM(nn.Module):
         cfg = self.cfg
         t = min(cfg.sliding_window, max_seq) if local else max_seq
         shape = (batch, t, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        return {"k": placed_zeros(shape, dtype, self.device),
+                "v": placed_zeros(shape, dtype, self.device)}
 
     # -- decode ---------------------------------------------------------------
     @torch.no_grad()
@@ -359,24 +409,6 @@ class LM(nn.Module):
         return logits[:, 0], caches
 
     # -- prefill ---------------------------------------------------------------
-    def _prefill_kv(self, p, h: torch.Tensor, s: int, local: bool,
-                    max_seq: Optional[int]) -> Dict[str, torch.Tensor]:
-        """The (K, V) cache of one attention application over h (B, S, d):
-        full length, padded to ``max_seq``, or, for a local layer past its
-        window, the last ``window`` keys in rotating layout."""
-        cfg = self.cfg
-        k, v = map(plain, L.attn_prefill_kv(p, h, cfg))     # plain tensors, as init_cache's
-        if local and cfg.sliding_window < s:
-            w = cfg.sliding_window
-            # rotating layout: last w keys at slots (pos % w)
-            k = torch.roll(k[:, -w:], s % w, dims=1)
-            v = torch.roll(v[:, -w:], s % w, dims=1)
-        elif max_seq is not None and max_seq > s:
-            pad = (0, 0, 0, 0, 0, max_seq - s)
-            k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
-        return {"k": k.to(self.cache_dtype()).contiguous(),
-                "v": v.to(self.cache_dtype()).contiguous()}
-
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, image_embeds: Optional[torch.Tensor] = None,
                 max_seq: Optional[int] = None) -> Tuple[torch.Tensor, List]:
@@ -385,14 +417,16 @@ class LM(nn.Module):
         Attention caches are written full-length (local layers keep the last
         ``window`` keys in rotating layout); recurrent layers return their
         final states.  ``max_seq``: allocate global caches at this length
-        (> S) so decode can continue appending; default = exactly S.
+        (> S) so decode can continue appending; default = exactly S.  On a
+        mesh every cache and state is a DTensor placed by
+        ``launch.sharding.cache_sharding_rules``.
         """
         cfg = self.cfg
         batch = {"tokens": tokens}
         if image_embeds is not None:
             batch["image_embeds"] = image_embeds
         x = constrain(self._embed_inputs(batch), ("batch", None, None))
-        s = x.shape[1]
+        dt = self.cache_dtype()
         shared_p = self.shared_attn
         caches: List[Any] = []
         for slot, p in zip(self.slots, self.layers):
@@ -400,13 +434,18 @@ class LM(nn.Module):
             entry: Dict[str, Any] = {}
             if slot.shared_attn and shared_p is not None:
                 h = L.apply_norm(shared_p["norm"], x)
-                x = x + L.attn_apply(shared_p["attn"], h, cfg, causal=True, local=False)
-                entry["shared"] = self._prefill_kv(shared_p["attn"], h, s, False, max_seq)
+                y, k, v = L.attn_apply(shared_p["attn"], h, cfg, causal=True, local=False,
+                                       return_kv=True)
+                x = x + y
+                entry["shared"] = kv_cache(k, v, dt, max_seq=max_seq)
                 x = _shared_mlp(shared_p, x, cfg)
             h = L.apply_norm(p["norm1"], x)
             if slot.kind in ("attn_mlp", "attn_moe"):
-                x = x + L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local)
-                entry["attn"] = self._prefill_kv(p["attn"], h, s, slot.local, max_seq)
+                y, k, v = L.attn_apply(p["attn"], h, cfg, causal=True, local=slot.local,
+                                       return_kv=True)
+                x = x + y
+                entry["attn"] = kv_cache(k, v, dt, window=cfg.sliding_window if slot.local
+                                         else None, max_seq=max_seq)
                 x = x + _ffn(p, x, cfg, slot)
             else:
                 apply = {"mamba": SSM.mamba_apply, "mlstm": SSM.mlstm_apply,

@@ -7,7 +7,7 @@ starts WORLD of these, each in a process of its own with a time limit, and
 reads ``OUT_DIR/rank<RANK>.npz``.  The
 process group is gloo, rendezvous through ``file://INIT_FILE`` (no port);
 DEVICE is ``cpu``, or ``cuda`` for ranks that share one card.  It imports
-torch and the port only.
+torch, the port and (MODE ``serve``) ``chip_smoke.py`` only.
 
 MODE ``coded``: the worker-mesh ``CodedMatvec`` on ``make_worker_mesh``;
 IN_NPZ holds A, x, the code's (n, k), C and the speed vectors; the output
@@ -25,6 +25,18 @@ output holds the loss, the gradient norm and every parameter after the
 step, gathered.  With ``prefill`` in IN_NPZ, ``build_prefill_step`` runs
 first on the batch's tokens (and image embeds or frames), and the output
 also holds its last position's logits, gathered.
+
+MODE ``serve``: ``build_prefill_step`` (room for ``steps`` more tokens)
+and then ``steps`` calls of ``build_decode_step`` (``chip_smoke.py``'s
+``mesh_serve_run``, as phase 11 (d)'s ranks serve), on the mesh of IN_NPZ
+(2 × 2 without one), the weights placed by ``shard_model`` with
+``serve_rules``, as the dry-run places a serving cell's; IN_NPZ holds the
+arch, the parameters, the prompt (``b:``), the tokens each step decodes
+(``decode``) and, optionally, the model's ``dtype``.  The output holds
+the prefill's logits, each step's logits (what ``decode_step`` returned
+to the builder) and next tokens, every cache after the last step, all
+gathered, and ``placed``: whether every cache was a DTensor placed by
+``cache_sharding_rules`` after the prefill and after each step.
 """
 
 from __future__ import annotations
@@ -100,6 +112,42 @@ def train(rank: int, world: int, data, dev: torch.device) -> dict:
     out.update(loss=metrics["loss"].cpu().numpy(), grad_norm=metrics["grad_norm"].cpu().numpy())
     for name, p in model.named_parameters():
         out["p:" + name] = p.full_tensor().detach().float().cpu().numpy()
+    return out
+
+
+def serve(rank: int, world: int, data, dev: torch.device) -> dict:
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import caches_placed, mesh_serve_run
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import serve_rules, shard_model
+    from repro_torch.models import build_model
+
+    cfg = get_config(str(data["arch"])).reduced()
+    if "dtype" in data.files:
+        cfg = dataclasses.replace(cfg, dtype=str(data["dtype"]))
+    shape_ = tuple(int(v) for v in data["mesh"]) if "mesh" in data.files else (2, 2)
+    mesh = init_device_mesh(dev.type, shape_, mesh_dim_names=("data", "model"))
+    model = build_model(cfg, device=dev)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(data["p:" + name]))
+    shard_model(model, mesh, serve_rules(cfg, tp=shape_[1]) or None)
+    batch = {k[2:]: torch.from_numpy(data[k]).to(dev) for k in data.files if k.startswith("b:")}
+    with mesh:
+        run = mesh_serve_run(model, cfg, SH.place(batch, SH.batch_shardings(mesh, batch)),
+                             data["decode"].shape[1], torch.from_numpy(data["decode"]),
+                             lambda caches: caches_placed(mesh, caches))
+    out = {"placed": np.array(run["placed"]), "prefill": run["prefill"].numpy(),
+           "logits": run["logits"].numpy(), "next": run["greedy"].numpy()}
+    for i, entry in enumerate(run["caches"]):
+        for kind, state in entry.items():
+            for name, c in state.items():
+                out[f"c:{i}:{kind}:{name}"] = c.full_tensor().float().cpu().numpy()
     return out
 
 
@@ -188,7 +236,7 @@ def main(argv) -> int:
                             world_size=world)
     try:
         data = np.load(in_npz, allow_pickle=False)
-        out = {"coded": coded, "train": train}[mode](rank, world, data, dev)
+        out = {"coded": coded, "train": train, "serve": serve}[mode](rank, world, data, dev)
         np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

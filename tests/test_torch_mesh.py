@@ -161,8 +161,9 @@ def test_chip_smoke_phase_eleven_on_the_cpu(tmp_path):
     sizes, in a process of its own (it makes process groups and spawns the
     worker mesh's ranks): (a) 4 ranks of a (4, 3) code within 1e-3 of
     float64, (b) two finite train steps, (c) the step builders bit for bit
-    the model's own calls, and the same tokens on a (1, 1) mesh; the CPU
-    launches no kernel."""
+    the model's own calls, and the same tokens on a (1, 1) mesh, (d) both
+    families' serving on a (2, 2) mesh of 4 gloo ranks against the
+    unsharded run, in float32 and bfloat16; the CPU launches no kernel."""
     script = tmp_path / "phase11.py"
     script.write_text(PHASE_ELEVEN)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
@@ -180,3 +181,9 @@ def test_chip_smoke_phase_eleven_on_the_cpu(tmp_path):
     serve = got["record"]["serve_steps"]
     assert serve["tokens_equal"] and serve["mesh_prefill_logits_max_abs_err"] == 0.0
     assert "phase 11 (c): build_prefill_step + build_decode_step" in out.stdout
+    sharded = got["record"]["mesh_serve"]
+    for arch in ("zamba2-1.2b", "seamless-m4t-large-v2"):
+        for dtype in ("float32", "bfloat16"):
+            rec = sharded[arch][dtype]
+            assert rec["first_tokens_equal"], (arch, dtype)
+            assert all(e <= lim for e, lim in zip(rec["rel_err_by_step"], rec["limit_by_step"]))

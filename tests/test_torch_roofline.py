@@ -13,16 +13,11 @@ package's (``repro.launch.roofline``).
 * ``step_cost`` of one reduced float32 train, prefill and decode step per
   family, on the CPU, against the JAX package's ``hlo_cost`` of the same
   jitted step (the same weights and batch).  The same matmuls give the
-  same counts: the port's are exact where it runs the same ones, and
-  otherwise differ as follows.
+  same counts: the port's are exact where it runs the same ones (the
+  prefill too: it hands the K and V of its one projection to the cache,
+  as XLA's common-subexpression elimination merges the JAX package's two),
+  and otherwise differ as follows.
 
-  - The prefill of every attention block projects Q, K and V twice in the
-    port: once in ``attn_apply`` and once for the cache
-    (``attn_prefill_kv``), where XLA's common-subexpression elimination
-    merges the two.  The duplicate's FLOPs and bytes are computed from the
-    config and taken off, and then the counts are exact for the dense
-    (``attn_mlp``, local/global too), ``vit_stub`` and encoder-decoder
-    families.
   - ``attn_moe``: the JAX package dispatches and combines with one-hot
     einsums, which count as dots, and the port by index copies and
     ``index_add_``, which do not: the port counts up to 12.6 % fewer.
@@ -79,7 +74,7 @@ B, SEQ, LR = 4, 16, 1e-2
 FAMILIES = ["mistral-nemo-12b", "gemma3-27b", "internvl2-26b", "phi3.5-moe-42b-a6.6b",
             "zamba2-1.2b", "xlstm-125m", "seamless-m4t-large-v2"]
 # (arch, step kind) -> (flops, dot bytes): the largest |port / JAX - 1|
-# allowed after the duplicate projections are taken off; 0 where exact
+# allowed; 0 where exact
 BANDS = {
     ("gemma3-27b", "train"): (0.03, 0.025),                 # measured 2.6 %, 2.2 %
     ("phi3.5-moe-42b-a6.6b", "prefill"): (0.13, 0.13),      # 12.1 %, 12.6 %
@@ -182,24 +177,6 @@ def test_counter_counts_what_one_rank_holds():
     assert got["local"] == [256, n]
 
 
-def _duplicate_projections(cfg, kind: str) -> tuple:
-    """(FLOPs, dot bytes) of the second Q/K/V projection the port's prefill
-    makes for each attention block's cache, float32."""
-    if kind != "prefill" or cfg.family == "ssm":
-        return 0.0, 0.0
-    tokens = B * SEQ + (B * cfg.frontend_tokens if cfg.frontend == "vit_stub" else 0)
-    if cfg.is_encdec:
-        blocks = cfg.num_layers                                  # the decoder's self-attention
-    elif cfg.family == "hybrid":
-        blocks = cfg.num_layers // cfg.shared_attn_every         # the shared block's applications
-    else:
-        blocks = cfg.num_layers
-    d, widths = cfg.d_model, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim)
-    flops = sum(2 * tokens * d * w for w in widths)
-    nbytes = sum(4 * (tokens * d + d * w + tokens * w) for w in widths)
-    return blocks * flops, blocks * nbytes
-
-
 def _steps(arch: str):
     """{kind: ((port flops, port bytes), (JAX flops, JAX bytes))}."""
     jmodel = jax_build(jax_config(arch).reduced())
@@ -250,9 +227,8 @@ def _steps(arch: str):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_step_cost_matches_jax_hlo_cost(arch):
-    cfg, steps = _steps(arch)
+    _, steps = _steps(arch)
     for kind, ((flops, nbytes), (jflops, jbytes)) in steps.items():
-        dup_flops, dup_bytes = _duplicate_projections(cfg, kind)
         flops_band, bytes_band = BANDS.get((arch, kind), (0.0, 0.0))
-        assert abs((flops - dup_flops) / jflops - 1) <= flops_band, (kind, flops, jflops)
-        assert abs((nbytes - dup_bytes) / jbytes - 1) <= bytes_band, (kind, nbytes, jbytes)
+        assert abs(flops / jflops - 1) <= flops_band, (kind, flops, jflops)
+        assert abs(nbytes / jbytes - 1) <= bytes_band, (kind, nbytes, jbytes)
