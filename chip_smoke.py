@@ -206,28 +206,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     kernels' launch counters zeroed before (a) and read after (b):
     (a) xlstm-125m whole (12 layers, 9 mLSTM and 3 sLSTM, d_model 768,
         vocab 50,304, random from seed 0) with ``examples/train_lm.py``'s
-        flags without ``--reduced``: coded DP over 8 groups tolerating 2, group
-        3 killed at step 10, batch 16, seq 48, 15 steps into a temporary
+        flags without ``--reduced`` but the sequence: coded DP over 8 groups
+        tolerating 2, group 3 killed at step 10, batch 16, seq 32 (the
+        example's 48 cut for the script's time), 15 steps into a temporary
         checkpoint directory (24 microbatches a step), group 3 dead in
         exactly the 5 steps 10-14; every loss finite and
-        ``loss_improved=True`` printed; then ``main`` again with 18 steps,
-        which must resume from the step-14 checkpoint and run the 3 steps
+        ``loss_improved=True`` printed; then ``main`` again with 17 steps,
+        which must resume from the step-14 checkpoint and run the 2 steps
         left; each step's time (the card synchronised at its start) and
         the peak memory;
     (b) zamba2-1.2b whole (38 Mamba-2 layers and the shared attention
-        block, 1.17 B parameters) for 3 coded AdamW steps over 8 groups,
+        block, 1.17 B parameters) for 2 coded AdamW steps over 8 groups,
         its peak memory beside the reckoning of the JAX package's
         functional step (parameters, AdamW moments, 8 float32 coded trees,
         the decoded tree and its /n copy, a microbatch's gradients);
     (c) the sLSTM scan's backward (autograd through ``ssm._slstm_scan``'s
         loop) on one xlstm-125m sLSTM layer, float32: at B = 2, S = 64,
         (dr, db, dxw) against the same loop's in float64 within 1e-4 of
-        each gradient's largest value; at S = 64 and 2,048, forward and
+        each gradient's largest value; at S = 64 and 1,024, forward and
         backward between CUDA events and the memory the backward's graph
         held, beside the outputs' bytes;
     (d) every kernel counter reads 0 across (a) and (b): the training path,
         like the JAX package's, reaches none of the four kernels;
-    (e) one coded microbatch of each (B = 2, S = 48: ``loss_fn`` and the
+    (e) one coded microbatch of each (B = 2, S = 32: ``loss_fn`` and the
         gradient of every parameter) under ``torch.profiler``: its kernels'
         time, launches and the device's idle share.
 
@@ -263,9 +264,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         ``("data", "model")`` mesh of 4 spawned ranks that share the card
         over gloo (DTensor's all-gathers, reduce-scatters and all-to-alls
         of CUDA tensors staged through host memory: gloo crashes gathering
-        CUDA tensors into one): zamba2-1.2b and seamless-m4t-large-v2 whole,
-        in bfloat16 and in float32 with the same weights, 4 x 512 tokens
-        (seamless: 512 frames and 512 tokens) and 8 steps decoding the
+        CUDA tensors into one): zamba2-1.2b and seamless-m4t-large-v2 whole
+        and phi3.5-moe-42b-a6.6b at full width and 2 of its 32 layers (its
+        experts split over the model axis, the dispatch an all-to-all), in
+        bfloat16 and in float32 with the same weights, 4 x 512 tokens
+        (seamless: 512 frames and 512 tokens) and 4 steps decoding the
         unsharded bfloat16 run's greedy tokens; each rank's heads, experts,
         caches and recurrent states its own (``partition.on_local_shards``),
         every cache a DTensor placed by ``cache_sharding_rules`` after the
@@ -275,7 +278,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         MESH_BF16_RATIO times the unsharded bfloat16 run's; in both dtypes
         the first step's tokens equal; each rank's peak allocation beside the
         dry-run's reckoning of the cells on a ``fake`` group of 4;
-        (b)-(d) launch none of the four kernels (their counters read 0), as
+    (e) ``build_train_step`` on the same mesh of 4 spawned gloo ranks:
+        zamba2-1.2b whole in float32 (drawn as (d) draws it), ``train_4k``'s
+        4,096 tokens cut to 1,024 and its batch of 256 to 4,
+        ``grad_accum_for``'s microbatches, SGDM, one step, the weights placed
+        by ``shard_model``, the optimizer's state by
+        ``train_state_shardings``, the batch by ``batch_shardings``; every
+        rank, and the same step unsharded in float32, held to the same step
+        unsharded in float64 on the card (the witness): the loss and
+        gradient norm within 1e-4 of the witness's, every parameter after
+        the step within 2e-3 of the witness's largest update of it (the half
+        float32 ulp of its largest value aside); rank 0's step time beside
+        the unsharded one; each rank's peak allocation over the step beside
+        the dry-run's reckoning of the cell on a ``fake`` group of 4;
+        (b)-(e) launch none of the four kernels (their counters read 0), as
         the JAX package's step builders reach no Pallas kernel.
 
 12. the dry-run, the roofline and the cluster demo:
@@ -322,6 +338,7 @@ the multi design at the lm_head's shape has phase 7's.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -412,7 +429,8 @@ ENCDEC_CONTEXT = 2_048          # frames and prompt tokens of (b)
 
 # phase 10, training on the card through launch.train.main: xlstm-125m whole
 # with examples/train_lm.py's flags without --reduced (8 groups, 2 tolerated,
-# group 3 killed at step 10, batch 16, seq 48) for TRAIN_STEPS[0] steps, then
+# group 3 killed at step 10, batch 16) but its seq 48 cut to 32, for
+# TRAIN_STEPS[0] steps, then
 # a restart to TRAIN_STEPS[1] that resumes from the last checkpoint;
 # zamba2-1.2b whole for BIG_STEPS coded AdamW steps; the sLSTM scan's
 # backward at B, S = SLSTM_BS, float32, against the same loop's in float64,
@@ -421,14 +439,19 @@ ENCDEC_CONTEXT = 2_048          # frames and prompt tokens of (b)
 TRAIN_ARCH = "xlstm-125m"
 TRAIN_BIG = "zamba2-1.2b"
 # (15 steps hold the loop's whole 5-step dead window, 10-14, before the
-# checkpoint; a restart to 18 resumes 3; 20 and 24 took the phase 500 s of
-# a 1,200 s script on a slow host)
-TRAIN_STEPS = (15, 18, 16, 48)          # steps, steps after the restart, batch, seq
+# checkpoint; a restart to 17 resumes 2; 20 and 24 took the phase 500 s of
+# a 1,200 s script on a slow host.  Seq 32, not the example's 48, since
+# phase 11 (d)'s MoE and (e) came: an xlstm step 7.6 s, not 12.4, on one
+# H100 (NVIDIA H100 80GB HBM3, 700 W); at 24 the 15 steps did not lower
+# the loss, 11.2020 to 11.2826.  Since (e)'s float64 witness, for the
+# script's time: the restart resumes 2 steps, not 3, zamba2 takes
+# BIG_STEPS = 2, not 3, and the sLSTM's long scan is 1,024, not 2,048)
+TRAIN_STEPS = (15, 17, 16, 32)          # steps, steps after the restart, batch, seq
 TRAIN_STEPS_REDUCED = (15, 18, 8, 16)   # the CPU test's
 DEAD_STEPS = 5                          # train_loop.train's window for a killed group
-BIG_STEPS = 3
+BIG_STEPS = 2
 SLSTM_BS = (2, 64)
-SLSTM_LONG_S = {False: 2_048, True: 256}
+SLSTM_LONG_S = {False: 1_024, True: 256}
 SLSTM_BWD_REL = 1e-4                    # of each gradient's largest value
 PROFILED_MICROBATCHES = 2
 
@@ -460,12 +483,39 @@ STEP_SERVE_ARCH, STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS = (
 # prefill and 8 steps with random weights, so no bfloat16 run that sums in
 # another order comes within HANDOFF_REL of it (tests/test_torch_mesh_serve.py
 # holds the port's bfloat16 distance from float32 to the JAX package's)
-MESH_SERVE_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2")
+MESH_SERVE_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b")
+# phi3.5-moe at full width (d_model 4,096, 16 experts of d_ff 6,400) and
+# two of its 32 layers: each rank draws the model whole in bfloat16 (5.7
+# GB at two layers), moves it to the host and upcasts a float32 copy on
+# the card (11.5 GB) before it keeps its shard, four ranks at once on one
+# 80 GB card (46 GB); three layers would take 65 GB of it
+MESH_SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 2}
 MESH_BF16_RATIO = 1.5
 MESH_SERVE_DTYPES = ("float32", "bfloat16")
 MESH_SERVE_SHAPE, MESH_SERVE_TIMEOUT = (2, 2), 600
-MESH_SERVE_TRAFFIC = (4, 512, 8)             # B, P, S
+MESH_SERVE_TRAFFIC = (4, 512, 4)             # B, P, S (8 steps before (e)'s witness)
 MESH_SERVE_TRAFFIC_REDUCED = (4, 16, 4)      # the CPU test's
+# (e) build_train_step on the same mesh of spawned ranks: zamba2-1.2b
+# whole, drawn as (d) draws it (seed 0, bfloat16, upcast to float32),
+# train_4k's sequence cut to S and its global batch to B, grad_accum_for's
+# microbatches, SGDM at MESH_TRAIN_LR (its step is lr times the gradient,
+# where AdamW's first step, g / |g|, turns a float32 reordering of a
+# near-zero gradient into a whole ±lr).  Each rank, and the same step
+# unsharded in float32, is held to the step unsharded in float64 (the
+# witness): the loss and gradient norm within MESH_TRAIN_TOL of the
+# witness's (tests/test_torch_mesh_train.py's TOL), every parameter within
+# MESH_TRAIN_UPDATE_TOL of the witness's largest update of it, once the
+# half float32 ulp of its largest value is allowed for.  The unsharded
+# float32 step lies 6.1e-4 to 1.02e-3 of the update from the witness at 1,
+# 2 or 4 microbatches (examples/torch_train_precision.py; NVIDIA H100 80GB
+# HBM3, 700 W): float32 alone does not reach 1e-4 of a gradient summed over
+# 4,096 tokens, on the leaves that start at zero (Mamba-2's a_log and
+# dt_bias, -lr·g after the step) as on the others
+MESH_TRAIN_ARCH, MESH_TRAIN_LR, MESH_TRAIN_TOL = "zamba2-1.2b", 1e-2, 1e-4
+MESH_TRAIN_UPDATE_TOL = 2e-3                 # twice the unsharded float32 step's worst
+MESH_TRAIN_TRAFFIC = (4, 1_024)              # B, S
+MESH_TRAIN_TRAFFIC_REDUCED = (4, 16)         # the CPU test's
+MESH_TRAIN_TIMEOUT = 600
 
 # phase 12, the dry-run, the roofline and the cluster demo: (a) cells of
 # python -m repro_torch.launch.dryrun, (arch, shape, mesh, REPRO_GRAD_ACCUM
@@ -2657,7 +2707,7 @@ def slstm_backward_at_width(dev, compare, reduced: bool) -> dict:
     """(c) One xlstm-125m sLSTM layer's scan (``ssm._slstm_scan``), float32,
     as the training path differentiates it (autograd through the loop): at
     B = 2, S = 64 its gradients (dr, db, dxw) against the same loop's in
-    float64 on the same card tensors; then, at S = 64 and S = 2,048, its
+    float64 on the same card tensors; then, at S = 64 and SLSTM_LONG_S, its
     forward and backward between CUDA events and the most memory the
     backward's graph held (the peak above what was allocated before the
     forward), beside the bytes of the outputs ``hs``, which is what a
@@ -3254,25 +3304,40 @@ def mesh_serve_inputs(cfg, b: int, prompt: int, dev) -> dict:
     return out
 
 
+def mesh_config(arch: str, reduced: bool):
+    """Phase 11 (d)'s and (e)'s config of ``arch``: its reduced float32
+    smoke config when ``reduced``, else the whole config at
+    MESH_SERVE_LAYERS' depth where that names the arch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if reduced:
+        return cfg.reduced()
+    if arch in MESH_SERVE_LAYERS:
+        return dataclasses.replace(cfg, num_layers=MESH_SERVE_LAYERS[arch])
+    return cfg
+
+
 def mesh_serve_model(arch: str, reduced: bool, dtype: str, dev):
-    """Phase 11 (d)'s model of ``arch`` (its reduced float32 smoke config
-    when ``reduced``) in ``dtype``, its weights drawn from seed 0 in
-    bfloat16 and, for float32, upcast: both dtypes serve the same weights.
-    Returns (config, model)."""
+    """Phase 11 (d)'s and (e)'s model of ``arch`` (``mesh_config``) in
+    ``dtype``, its weights drawn from seed 0 in bfloat16
+    and, for float32, upcast: both dtypes serve the same weights.  Returns
+    (config, model)."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
-    cfg = cfg.reduced() if reduced else cfg
+    cfg = mesh_config(arch, reduced)
     drawn = dataclasses.replace(cfg, dtype="bfloat16")
     model = build_model(drawn, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     if dtype == "bfloat16":
         return drawn, model
     cfg = dataclasses.replace(cfg, dtype=dtype)
+    model.cpu()              # the card holds one whole copy at a time, the float32 one
     wide = build_model(cfg, device="meta").to_empty(device=dev)
     with torch.no_grad():
         for w, p in zip(wide.parameters(), model.parameters()):
@@ -3471,22 +3536,31 @@ def mesh_serve_reckoning(cfg, b: int, prompt: int, steps: int) -> dict:
     """The dry-run's per-rank peak (GB) of phase 11 (d)'s prefill and of a
     decode step at its last position, on a (2, 2) mesh of a ``fake`` group
     of 4 ranks, ``meta`` tensors placed as the ranks place theirs."""
-    from torch.distributed.device_mesh import init_device_mesh
-
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch.dryrun import fake_group, run_cell
 
     # the encoder-decoder's cells split one length into frames and tokens
     # (steps.enc_len_for): its decode cell's self cache is 2P long, not P + S
     seq = 2 * prompt if cfg.is_encdec else prompt
+    return mesh_reckoning(cfg, [ShapeConfig(f"mesh_{kind}", length, b, kind) for kind, length in
+                                (("prefill", seq),
+                                 ("decode", seq if cfg.is_encdec else prompt + steps))])
+
+
+def mesh_reckoning(cfg, cells) -> dict:
+    """The dry-run's per-rank peak (GB) of each cell (a ``ShapeConfig``) on a
+    MESH_SERVE_SHAPE mesh of a ``fake`` group of 4 ranks, ``meta`` tensors
+    placed as phase 11 (d)'s and (e)'s ranks place theirs; by the cell's
+    kind."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.dryrun import fake_group, run_cell
+
     out = {}
     with fake_group(4):
         mesh = init_device_mesh("cpu", MESH_SERVE_SHAPE, mesh_dim_names=("data", "model"))
-        for kind, length in (("prefill", seq), ("decode", seq if cfg.is_encdec
-                                                  else prompt + steps)):
-            rec = run_cell(cfg, ShapeConfig(f"mesh_{kind}", length, b, kind), mesh, "2x2",
-                           verbose=False)
-            out[kind] = rec["memory"]["peak_resident_bytes"] / 1e9
+        for cell in cells:
+            rec = run_cell(cfg, cell, mesh, "2x2", verbose=False)
+            out[cell.kind] = rec["memory"]["peak_resident_bytes"] / 1e9
     return out
 
 
@@ -3526,7 +3600,7 @@ def mesh_serve(dev, reduced: bool) -> dict:
     record: dict = {"shape": list(MESH_SERVE_SHAPE), "batch": b, "prompt": prompt,
                     "steps": steps}
     try:
-        refs, reckoned, encdec = {}, {}, {}
+        refs, reckoned, cfgs = {}, {}, {}
         for arch in MESH_SERVE_ARCHS:
             feed = None
             for dtype in ("bfloat16", "float32"):        # float32 decodes bfloat16's tokens
@@ -3539,9 +3613,7 @@ def mesh_serve(dev, reduced: bool) -> dict:
                 del model
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
-            encdec[arch] = cfg.is_encdec
-            reckoned[arch] = mesh_serve_reckoning(dataclasses.replace(cfg, dtype="bfloat16"), b,
-                                                  prompt, steps)
+            cfgs[arch] = dataclasses.replace(cfg, dtype="bfloat16")
         (tmp / "spec.json").write_text(json.dumps({
             "device": dev.type, "shape": list(MESH_SERVE_SHAPE), "archs": list(MESH_SERVE_ARCHS),
             "traffic": [b, prompt, steps], "reduced": reduced}))
@@ -3552,6 +3624,8 @@ def mesh_serve(dev, reduced: bool) -> dict:
         for p in procs:
             p.start()
         deadline = time.monotonic() + MESH_SERVE_TIMEOUT
+        for arch, cfg in cfgs.items():        # on the host, while the ranks serve
+            reckoned[arch] = mesh_serve_reckoning(cfg, b, prompt, steps)
         for p in procs:
             p.join(max(deadline - time.monotonic(), 0))
         ranks_s = time.perf_counter() - t0
@@ -3577,7 +3651,8 @@ def mesh_serve(dev, reduced: bool) -> dict:
         own = rel_by_step(refs[arch, "bfloat16"], f32)
         limits = {"float32": [F32_HANDOFF_REL] * (steps + 1),
                   "bfloat16": [max(HANDOFF_REL, MESH_BF16_RATIO * e) for e in own]}
-        record[arch] = {"reckoned_peak_gb": reckoned[arch], "bf16_from_f32_by_step": own}
+        record[arch] = {"reckoned_peak_gb": reckoned[arch], "bf16_from_f32_by_step": own,
+                        "layers": cfgs[arch].num_layers}
         for dtype in MESH_SERVE_DTYPES:
             ref = refs[arch, dtype]
             by_step = [0.0] * (steps + 1)    # the prefill's, then each step's, worst of the ranks
@@ -3609,8 +3684,9 @@ def mesh_serve(dev, reduced: bool) -> dict:
                    "tokens_agree": int((first["greedy"] == ref["greedy"]).sum()),
                    "tokens": int(ref["greedy"].numel())}
             record[arch][dtype] = rec
-            what = "frames and tokens" if encdec[arch] else "tokens"
-            print(f"phase 11 (d): {arch} in {dtype} on a {MESH_SERVE_SHAPE} mesh of {world} "
+            what = "frames and tokens" if cfgs[arch].is_encdec else "tokens"
+            print(f"phase 11 (d): {arch} ({cfgs[arch].num_layers} layers) in {dtype} on a "
+                  f"{MESH_SERVE_SHAPE} mesh of {world} "
                   f"gloo ranks, {b} x {prompt} {what}, {steps} steps: logits from the unsharded "
                   "float32 run's, over its largest (the prefill's, then each step's): "
                   + ", ".join(f"{e:.2e}" for e in by_step) + " (limits "
@@ -3631,13 +3707,403 @@ def mesh_serve(dev, reduced: bool) -> dict:
     return record
 
 
+def float64_witness():
+    """A ``TorchDispatchMode`` under which the port computes in float64
+    where it asks for float32: every float32 ``dtype`` an op is given
+    (``Tensor.float()``, ``.to``, ``zeros_like(..., dtype=)``, ...) is
+    float64, and so is the default dtype while it is on.  It works under
+    autograd, so a checkpointed block's recompute in the backward is
+    float64 too.  Its ``float32`` attribute counts, by op and the port's
+    line that called it, the calls that still returned a float32 tensor: a
+    witness wants none.  The parameters are made float64 outside the mode
+    (the draw must not change)."""
+    import collections
+    import traceback
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    f32, f64 = torch.float32, torch.float64
+
+    class Witness(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.float32 = collections.Counter()
+
+        def __enter__(self):
+            self.default = torch.get_default_dtype()
+            torch.set_default_dtype(f64)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            torch.set_default_dtype(self.default)
+            return super().__exit__(*exc)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            args, kwargs = tree_map(lambda a: f64 if a is f32 else a, (args, kwargs or {}))
+            out = func(*args, **kwargs)
+            if any(isinstance(t, torch.Tensor) and t.dtype == f32 for t in tree_flatten(out)[0]):
+                port = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
+                self.float32[f"{func} at " + (f"{Path(port[-1].filename).name}:"
+                                              f"{port[-1].lineno}" if port else "?")] += 1
+            return out
+
+    return Witness()
+
+
+def mesh_train_inputs(cfg, reduced: bool, dev, seq: int = 0):
+    """Phase 11 (e)'s cell: ``train_4k`` cut to MESH_TRAIN_TRAFFIC, or to
+    ``seq`` tokens where given (the ``ShapeConfig``), and its B x S tokens
+    from seed 7 (the labels too)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import shape_by_name
+
+    b, cut = MESH_TRAIN_TRAFFIC_REDUCED if reduced else MESH_TRAIN_TRAFFIC
+    seq = seq or cut
+    shape = dataclasses.replace(shape_by_name("train_4k"), seq_len=seq, global_batch=b)
+    tokens = torch.randint(0, cfg.vocab_size, (b, seq), device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    return shape, tokens
+
+
+def mesh_train_unsharded(dev, reduced: bool, dtype: str, tokens, shape, accum: int,
+                         start: dict | None = None) -> tuple:
+    """One SGDM step (MESH_TRAIN_LR) of ``build_train_step`` with no mesh on
+    the card, on MESH_TRAIN_ARCH drawn as phase 11 (d) draws it, at
+    ``accum`` microbatches; in ``dtype``, "float32", or "float64" under
+    :func:`float64_witness` (which fails if an op still returned float32).
+    ``start``, where given, receives each parameter as drawn, in bfloat16
+    on the host (exact: bfloat16 draws and the constants 0 and 1).  Returns the
+    model after the step, the loss and gradient norm, the step's seconds
+    (the card synchronised) and its peak allocation (GB)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.convert import group
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim.optimizer import make_optimizer
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg, model = mesh_serve_model(MESH_TRAIN_ARCH, reduced, dtype, dev)
+    cfg = dataclasses.replace(cfg, grad_accum_train=accum)
+    witness = float64_witness() if dtype == "float64" else None
+    if start is not None:
+        start.update((n, p.detach().to(torch.bfloat16).cpu())
+                     for n, p in model.named_parameters())
+        inexact = [n for n, p in model.named_parameters()
+                   if not torch.equal(start[n].to(p.device, p.dtype), p.detach())]
+        if inexact:
+            raise RuntimeError(f"phase 11 (e): leaves not exact in bfloat16: {inexact[:4]}")
+    if witness:
+        model.double()             # its float32 norms, gates and SSM leaves too
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with witness or contextlib.nullcontext():
+        opt = make_optimizer("sgdm", lr=MESH_TRAIN_LR)
+        state = opt.init(group(dict(model.named_parameters()), model))
+        metrics = build_train_step(cfg, shape, opt=opt)(model, state, 0,
+                                                         {"tokens": tokens, "labels": tokens})
+        metrics = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+    sync()
+    secs = time.perf_counter() - t0
+    if witness and witness.float32:
+        raise RuntimeError(f"phase 11 (e): the float64 witness still made float32 tensors: "
+                           f"{dict(witness.float32)}")
+    return model, metrics, secs, torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+
+
+def held_to_witness(name: str, got, start: dict, update: dict) -> tuple:
+    """Parameter ``name`` after a step (``got``, whole) against the float64
+    witness's, ``start[name] + update[name]`` (the parameter as drawn, in
+    bfloat16, and the witness's update, rounded to float32, on the host;
+    the sum is not rounded).  Returns the largest error, the witness's largest update
+    and largest value (in float64), and whether ``got`` is finite."""
+    import torch
+
+    dev = got.device
+    step = update[name].to(dev, torch.float64)
+    want = start[name].to(dev, torch.float64) + step
+    return (float((got.detach().double() - want).abs().max()), float(step.abs().max()),
+            float(want.abs().max()), bool(torch.isfinite(got).all()))
+
+
+def update_rel_err(held: tuple) -> float:
+    """A parameter's error after the step (:func:`held_to_witness`) over
+    the witness's largest update of it, less the half float32 ulp that
+    storing its largest value in float32 may cost: a float32 step is held
+    to the witness's gradient step, not to the rounding of the weights."""
+    diff, step, value, _ = held
+    return max(diff - 2.0 ** -24 * value, 0.0) / max(step, 1e-300)
+
+
+def mesh_train_run(model, cfg, mesh, batch: dict, lr: float, each_param=None) -> dict:
+    """One rank's sharded train step, as phase 11 (e)'s ranks and
+    ``tests/_torch_ranks.py train`` take it.  ``model`` holds the whole
+    weights and ``batch`` the whole batch, the same on every rank.  The
+    SGDM state (``lr``) is made on the whole parameters and placed by
+    ``train_state_shardings``, the parameters by ``shard_model`` (the train
+    rules), the batch by ``batch_shardings``: each rank keeps its shards,
+    with no collective.  Then one ``build_train_step`` step under ``with
+    mesh:``.  After it each parameter is gathered (``full_tensor``) and
+    handed to ``each_param(name, whole)``.
+    Returns the loss and gradient norm (floats), the step's seconds (the
+    card synchronised) and the peak allocation over the step and over the
+    placing before it (bytes, 0 on the CPU)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import group
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import build_train_step, shard_model, train_state_shardings
+    from repro_torch.optim.optimizer import make_optimizer
+
+    dev = batch["tokens"].device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    opt = make_optimizer("sgdm", lr=lr)
+    _, state_sh = train_state_shardings(dataclasses.replace(cfg, optimizer=opt.name), mesh)
+    state = SH.place(opt.init(group(dict(model.named_parameters()), model)), state_sh)
+    shard_model(model, mesh)
+    placed = SH.place(batch, SH.batch_shardings(mesh, batch))
+    shape = ShapeConfig("mesh_train", batch["tokens"].shape[1], batch["tokens"].shape[0],
+                        "train")
+    step = build_train_step(cfg, shape, mesh=mesh, opt=opt)
+    out: dict = {}
+    with mesh:
+        sync()
+        out["setup_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = step(model, state, 0, placed)
+        out["loss"] = float(metrics["loss"])              # synchronises
+        out["grad_norm"] = float(metrics["grad_norm"])
+        sync()
+        out["step_s"] = time.perf_counter() - t0
+        out["step_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+        del metrics, state
+        t0 = time.perf_counter()
+        for name, p in model.named_parameters() if each_param else ():
+            each_param(name, p.detach().full_tensor())
+        out["held_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 11 (e), in a process of its own: a gloo group of
+    ``world`` ranks sharing the card (as phase 11 (d)'s), the (2, 2) mesh,
+    MESH_TRAIN_ARCH whole in float32 from seed 0 (``mesh_serve_model``),
+    the parent's tokens, one step of ``mesh_train_run``.  Each gathered
+    parameter is held on the card to the float64 witness's
+    (:func:`held_to_witness`; ``start.pt`` and ``update.pt``, read a leaf
+    at a time from memory maps).  Writes ``rank<rank>.pt``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    faulthandler.enable()               # a crash in a collective shows its stack
+    tmp = Path(tmp)
+    spec = json.loads((tmp / "spec.json").read_text())
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'rendezvous'}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = init_device_mesh(dev.type, tuple(spec["shape"]), mesh_dim_names=("data", "model"))
+        out: dict = {"staged": stage_gloo_collectives() if dev.type == "cuda" else []}
+        t0 = time.perf_counter()
+        cfg, model = mesh_serve_model(spec["arch"], spec["reduced"], "float32", dev)
+        drawn_s = time.perf_counter() - t0
+        tokens = torch.load(tmp / "tokens.pt").to(dev)
+        start = torch.load(tmp / "start.pt", mmap=True)
+        update = torch.load(tmp / "update.pt", mmap=True)
+        errs: dict = {}
+
+        def held(name, whole):
+            errs[name] = held_to_witness(name, whole, start, update)
+
+        out.update(mesh_train_run(model, cfg, mesh, {"tokens": tokens, "labels": tokens},
+                                  spec["lr"], each_param=held))
+        out["errs"] = errs
+        out["phase_s"] = {"draw": drawn_s, "after_draw": time.perf_counter() - t0 - drawn_s,
+                          "step": out["step_s"], "gather_and_hold": out["held_s"]}
+        dist.barrier()
+        torch.save(out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_train(dev, reduced: bool) -> dict:
+    """Phase 11 (e): MESH_TRAIN_ARCH whole (``mesh_serve_model``: the
+    bfloat16 draw of seed 0, upcast) takes one SGDM step of
+    ``build_train_step`` on B x S tokens from seed 7
+    (:func:`mesh_train_inputs`), first with no mesh on the card in float64
+    (the witness, :func:`mesh_train_unsharded`; the parameters as drawn and
+    its update are written to the host and the model freed) and in float32
+    (the unsharded step, timed and held to the witness as the ranks are),
+    each at the sharded step's microbatches.  Then ranks spawned here on a
+    MESH_SERVE_SHAPE mesh sharing the card over gloo (``mesh_train_rank``)
+    take the same step sharded in float32, while the parent reckons the
+    cell with the dry-run on a ``fake`` group of 4.  Every float32 run's
+    loss and gradient norm within MESH_TRAIN_TOL of the witness's, and
+    every parameter after the step within MESH_TRAIN_UPDATE_TOL of the
+    witness's largest update of it (:func:`update_rel_err`), all finite."""
+    import dataclasses
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.steps import grad_accum_for
+
+    world = MESH_SERVE_SHAPE[0] * MESH_SERVE_SHAPE[1]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_train_"))
+    procs: list = []
+    try:
+        cfg = dataclasses.replace(mesh_config(MESH_TRAIN_ARCH, reduced), dtype="float32")
+        shape, tokens = mesh_train_inputs(cfg, reduced, dev)
+        accum = grad_accum_for(cfg, shape, dict(zip(("data", "model"), MESH_SERVE_SHAPE)))
+        start: dict = {}
+        model, witness, wit_s, wit_peak = mesh_train_unsharded(
+            dev, reduced, "float64", tokens, shape, accum, start)
+        with torch.no_grad():
+            update = {n: (p - start[n].to(dev, torch.float64)).float().cpu()
+                      for n, p in model.named_parameters()}
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        model, ref, ref_s, ref_peak = mesh_train_unsharded(dev, reduced, "float32", tokens,
+                                                           shape, accum)
+        with torch.no_grad():
+            ref["errs"] = {n: held_to_witness(n, p, start, update)
+                           for n, p in model.named_parameters()}
+        del model
+        torch.save(start, tmp / "start.pt")
+        torch.save(update, tmp / "update.pt")
+        torch.save(tokens.cpu(), tmp / "tokens.pt")
+        del start, update, tokens
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        (tmp / "spec.json").write_text(json.dumps({
+            "device": dev.type, "shape": list(MESH_SERVE_SHAPE), "arch": MESH_TRAIN_ARCH,
+            "reduced": reduced, "lr": MESH_TRAIN_LR}))
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_train_rank, args=(r, world, str(tmp)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_TRAIN_TIMEOUT
+        reckoned = mesh_reckoning(dataclasses.replace(cfg, optimizer="sgdm"), [shape])["train"]
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0))
+        ranks_s = time.perf_counter() - t0
+        alive = [r for r, p in enumerate(procs) if p.is_alive()]
+        if alive:
+            raise RuntimeError(f"phase 11 (e): ranks {alive} still running after "
+                               f"{MESH_TRAIN_TIMEOUT} s")
+        failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
+        if failed:
+            raise RuntimeError(f"phase 11 (e): ranks exited with {failed}")
+        ranks = [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    failures, worst = [], {}
+    for label, run in [("unsharded", ref)] + [(f"rank {r}", o) for r, o in enumerate(ranks)]:
+        errs = run["errs"]
+        if len(errs) != len(ref["errs"]):
+            failures.append(f"{label} held {len(errs)} of {len(ref['errs'])} parameters")
+            continue
+        for key in ("loss", "grad_norm"):
+            got, want = run[key], witness[key]
+            if not (math.isfinite(got) and abs(got - want) <= MESH_TRAIN_TOL * abs(want)):
+                failures.append(f"{label}: {key} {got!r} against the witness's {want!r} "
+                                f"(limit {MESH_TRAIN_TOL} of it)")
+        rel = {n: update_rel_err(e) for n, e in errs.items()}
+        bad = {n: rel[n] for n, e in errs.items()
+               if not (rel[n] <= MESH_TRAIN_UPDATE_TOL and e[3])}
+        if bad:
+            failures.append(f"{label}: {len(bad)} parameters after the step past "
+                            f"{MESH_TRAIN_UPDATE_TOL} of the witness's largest update or not "
+                            "finite: "
+                            + ", ".join(f"{n} {e:.2e}" for n, e in
+                                        sorted(bad.items(), key=lambda kv: -kv[1])[:8]))
+        name = max(rel, key=rel.get)
+        worst[label] = {"update": (rel[name], name),
+                        "value": max(e[0] / max(e[2], 1e-300) for e in errs.values())}
+    b, seq = shape.global_batch, shape.seq_len
+    record = {"arch": cfg.name, "layers": cfg.num_layers, "parameters": n_params,
+              "shape": list(MESH_SERVE_SHAPE), "batch": b, "seq": seq, "accum": accum,
+              "optimizer": "sgdm", "lr": MESH_TRAIN_LR, "tol": MESH_TRAIN_TOL,
+              "update_tol": MESH_TRAIN_UPDATE_TOL, "witness": witness,
+              "witness_step_s": wit_s, "witness_peak_gb": wit_peak,
+              "unsharded": {"loss": ref["loss"], "grad_norm": ref["grad_norm"]},
+              "unsharded_step_s": ref_s, "unsharded_peak_gb": ref_peak,
+              "ranks_s": ranks_s, "staged": ranks[0]["staged"],
+              "rank0_s": ranks[0]["phase_s"], "params_held": len(ref["errs"]),
+              "loss_by_rank": [o["loss"] for o in ranks],
+              "grad_norm_by_rank": [o["grad_norm"] for o in ranks],
+              "update_rel_err": {k: w["update"][0] for k, w in worst.items()},
+              "update_worst_leaf": {k: w["update"][1] for k, w in worst.items()},
+              "value_rel_err": {k: w["value"] for k, w in worst.items()},
+              "step_s": ranks[0]["step_s"], "step_s_by_rank": [o["step_s"] for o in ranks],
+              "step_peak_gb_by_rank": [o["step_peak"] / 1e9 for o in ranks],
+              "setup_peak_gb_by_rank": [o["setup_peak"] / 1e9 for o in ranks],
+              "reckoned_peak_gb": reckoned}
+    print(f"phase 11 (e): build_train_step on {cfg.name} ({cfg.num_layers} layers, "
+          f"{n_params:,} parameters) on a {MESH_SERVE_SHAPE} mesh of {world} gloo ranks in "
+          f"float32, {b} x {seq} tokens in {accum} microbatches, SGDM lr {MESH_TRAIN_LR}, held "
+          f"to the same step unsharded in float64 (loss {witness['loss']:.9f}, gradient norm "
+          f"{witness['grad_norm']:.9f}, {wit_s:.3f} s, peak {wit_peak:.3f} GB): losses "
+          + ", ".join(f"{v:.9f}" for v in record["loss_by_rank"])
+          + f" (unsharded float32 {ref['loss']:.9f}), gradient norms "
+          + ", ".join(f"{v:.9f}" for v in record["grad_norm_by_rank"])
+          + f" (unsharded float32 {ref['grad_norm']:.9f}; limit {MESH_TRAIN_TOL} of the "
+          f"witness's); each run's largest error over the witness's largest update, of the "
+          f"{len(ref['errs'])} parameters (limit {MESH_TRAIN_UPDATE_TOL}): " + "; ".join(
+              f"{k} {w['update'][0]:.3e} ({w['update'][1]}; over the largest value "
+              f"{w['value']:.3e})" for k, w in worst.items())
+          + f"; rank 0's step {record['step_s']:.3f} s (unsharded float32 {ref_s:.3f} s), its "
+          f"parts {record['rank0_s']}; the ranks' peak allocations over the step "
+          + ", ".join(f"{g:.3f}" for g in record["step_peak_gb_by_rank"])
+          + f" GB (the dry-run's reckoning {reckoned:.3f} GB; the unsharded float32 step "
+          f"{ref_peak:.3f} GB), over the placing before it "
+          + ", ".join(f"{g:.3f}" for g in record["setup_peak_gb_by_rank"])
+          + f" GB; collectives staged through the host: {record['staged']}", flush=True)
+    if failures:
+        raise RuntimeError("phase 11 (e): " + "; ".join(failures))
+    return record
+
+
 def mesh_steps_phase(dev, reduced: bool = False) -> tuple:
-    """Phase 11: (a) the worker mesh (:func:`mesh_iterations`); (b)-(d)
+    """Phase 11: (a) the worker mesh (:func:`mesh_iterations`); (b)-(e)
     the step builders at full width (:func:`step_train`,
-    :func:`step_serve`, :func:`mesh_serve`), which launch none of the four
-    kernels, as the JAX package's reach no Pallas kernel: their counters
-    must stay at 0 (the spawned ranks of (d) launch none either: they
-    build no kernel).
+    :func:`step_serve`, :func:`mesh_serve`, :func:`mesh_train`), which
+    launch none of the four kernels, as the JAX package's reach no Pallas
+    kernel: their counters must stay at 0 (the spawned ranks of (d) and (e)
+    launch none either: they build no kernel).
     Returns (a)'s launches by record name, and the phase's record."""
     from repro_torch.kernels import ops
 
@@ -3654,10 +4120,13 @@ def mesh_steps_phase(dev, reduced: bool = False) -> tuple:
     t0 = time.perf_counter()
     record["mesh_serve"] = mesh_serve(dev, reduced)
     record["mesh_serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["mesh_train"] = mesh_train(dev, reduced)
+    record["mesh_train_s"] = time.perf_counter() - t0
     counts, designs = ops.launch_counts(), ops.design_counts()
-    expect("phase 11 (b)-(d): kernel launches of the step builders", counts,
+    expect("phase 11 (b)-(e): kernel launches of the step builders", counts,
            dict.fromkeys(counts, 0))
-    expect("phase 11 (b)-(d): designs launched by the step builders", designs,
+    expect("phase 11 (b)-(e): designs launched by the step builders", designs,
            {k: dict.fromkeys(v, 0) for k, v in designs.items()})
     record["step_launches"] = counts
     return launches, record

@@ -7,7 +7,7 @@ starts WORLD of these, each in a process of its own with a time limit, and
 reads ``OUT_DIR/rank<RANK>.npz``.  The
 process group is gloo, rendezvous through ``file://INIT_FILE`` (no port);
 DEVICE is ``cpu``, or ``cuda`` for ranks that share one card.  It imports
-torch, the port and (MODE ``serve``) ``chip_smoke.py`` only.
+torch, the port and (MODEs ``train`` and ``serve``) ``chip_smoke.py`` only.
 
 MODE ``coded``: the worker-mesh ``CodedMatvec`` on ``make_worker_mesh``;
 IN_NPZ holds A, x, the code's (n, k), C and the speed vectors; the output
@@ -19,12 +19,14 @@ runs no collective: it makes a ``fake`` group of 256 (512 with MULTI_POD
 shapes and offsets of the arch's train state (:func:`layout`).
 
 MODE ``train``: one sharded ``build_train_step`` on a ``("data",
-"model")`` mesh, 2 × 2 unless IN_NPZ holds ``mesh``; IN_NPZ holds the
+"model")`` mesh (``chip_smoke.py``'s ``mesh_train_run``, as phase 11
+(e)'s ranks train), 2 × 2 unless IN_NPZ holds ``mesh``; IN_NPZ holds the
 arch, the port's parameters by name, the batch and the learning rate; the
 output holds the loss, the gradient norm and every parameter after the
 step, gathered.  With ``prefill`` in IN_NPZ, ``build_prefill_step`` runs
-first on the batch's tokens (and image embeds or frames), and the output
-also holds its last position's logits, gathered.
+first, on a sharded copy of the parameters of its own, on the batch's
+tokens (and image embeds or frames), and the output also holds its last
+position's logits, gathered.
 
 MODE ``serve``: ``build_prefill_step`` (room for ``steps`` more tokens)
 and then ``steps`` calls of ``build_decode_step`` (``chip_smoke.py``'s
@@ -75,43 +77,41 @@ def coded(rank: int, world: int, data, dev: torch.device) -> dict:
 def train(rank: int, world: int, data, dev: torch.device) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
 
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import mesh_train_run
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.convert import group
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.partition import local
-    from repro_torch.launch.steps import (build_prefill_step, build_train_step, shard_model,
-                                          train_state_shardings)
+    from repro_torch.launch.steps import build_prefill_step, shard_model
     from repro_torch.models import build_model
-    from repro_torch.optim.optimizer import make_optimizer
 
     cfg = get_config(str(data["arch"])).reduced()
     shape_ = tuple(int(v) for v in data["mesh"]) if "mesh" in data.files else (2, 2)
     mesh = init_device_mesh(dev.type, shape_, mesh_dim_names=("data", "model"))
-    model = build_model(cfg, device=dev)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.copy_(torch.from_numpy(data["p:" + name]))
-    shard_model(model, mesh)
-    opt = make_optimizer("sgdm", lr=float(data["lr"]))
-    _, state_sh = train_state_shardings(cfg, mesh)
-    state = SH.place(opt.init(group({n: p.full_tensor() for n, p in model.named_parameters()},
-                                    model)), state_sh)
+
+    def drawn():
+        model = build_model(cfg, device=dev)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(torch.from_numpy(data["p:" + name]))
+        return model
+
     batch = {k[2:]: torch.from_numpy(data[k]).to(dev) for k in data.files if k.startswith("b:")}
-    bsh = SH.batch_shardings(mesh, batch)
-    shape = ShapeConfig("smoke", batch["tokens"].shape[1], batch["tokens"].shape[0], "train")
-    step = build_train_step(cfg, shape, mesh=mesh, opt=opt)
     out = {}
-    with mesh:
-        placed = SH.place(batch, bsh)
-        if "prefill" in data.files:
-            logits, _ = build_prefill_step(cfg)(
-                model, {k: v for k, v in placed.items() if k != "labels"})
-            out["logits"] = local(logits).detach().float().cpu().numpy()
-        metrics = step(model, state, 0, placed)
-    out.update(loss=metrics["loss"].cpu().numpy(), grad_norm=metrics["grad_norm"].cpu().numpy())
-    for name, p in model.named_parameters():
-        out["p:" + name] = p.full_tensor().detach().float().cpu().numpy()
+    if "prefill" in data.files:         # the sharded prefill, on a copy of its own
+        model = shard_model(drawn(), mesh)
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        with mesh:
+            logits, _ = build_prefill_step(cfg)(model, SH.place(inputs,
+                                                                SH.batch_shardings(mesh, inputs)))
+        out["logits"] = local(logits).detach().float().cpu().numpy()
+        del model, logits
+
+    def keep(name, whole):
+        out["p:" + name] = whole.float().cpu().numpy()
+
+    run = mesh_train_run(drawn(), cfg, mesh, batch, float(data["lr"]), each_param=keep)
+    out.update(loss=np.array(run["loss"]), grad_norm=np.array(run["grad_norm"]))
     return out
 
 

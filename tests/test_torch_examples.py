@@ -1,6 +1,7 @@
 """The port's examples run end to end on the CPU (``--device cpu``), each in
 a fresh interpreter, with the assertions their JAX counterparts make."""
 
+import json
 import os
 import subprocess
 import sys
@@ -40,3 +41,18 @@ def test_train_lm_example_runs_and_the_loss_improves(tmp_path):
     out = _run("torch_train_lm.py", "--steps", "12", "--ckpt-dir", str(tmp_path / "ckpt"))
     assert "[train] loss_improved=True" in out.splitlines()
     assert "dead=[3]" in out and (tmp_path / "ckpt" / "step_00000011").is_dir()
+
+
+def test_train_precision_example_holds_float32_to_the_float64_witness():
+    """``examples/torch_train_precision.py`` at the reduced size: the float32
+    step at 1 and 4 microbatches, every leaf within 1e-4 of the float64
+    witness's update (the half ulp of its value aside), the losses within
+    1e-6 of the witness's, relative."""
+    rec = json.loads(_run("torch_train_precision.py", "--reduced", "--accum", "1",
+                          "4").splitlines()[-1])
+    assert set(rec["runs"]) == {"1", "4"}
+    for run in rec["runs"].values():
+        want = rec["witness"]["loss"]
+        assert run["finite"] and abs(run["loss"] - want) <= 1e-6 * abs(want), (run, want)
+        for kind in ("zero_start", "others"):
+            assert run[kind]["update_rel_err"] <= 1e-4, (kind, run[kind])

@@ -161,9 +161,12 @@ def test_chip_smoke_phase_eleven_on_the_cpu(tmp_path):
     sizes, in a process of its own (it makes process groups and spawns the
     worker mesh's ranks): (a) 4 ranks of a (4, 3) code within 1e-3 of
     float64, (b) two finite train steps, (c) the step builders bit for bit
-    the model's own calls, and the same tokens on a (1, 1) mesh, (d) both
-    families' serving on a (2, 2) mesh of 4 gloo ranks against the
-    unsharded run, in float32 and bfloat16; the CPU launches no kernel."""
+    the model's own calls, and the same tokens on a (1, 1) mesh, (d) three
+    families' serving (the MoE's among them) on a (2, 2) mesh of 4 gloo
+    ranks against the unsharded run, in float32 and bfloat16, (e) a train
+    step on that mesh: every rank's loss, gradient norm and parameters
+    after it, and the unsharded float32 step's, within 1e-4 of the same
+    step in float64; the CPU launches no kernel."""
     script = tmp_path / "phase11.py"
     script.write_text(PHASE_ELEVEN)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
@@ -182,8 +185,22 @@ def test_chip_smoke_phase_eleven_on_the_cpu(tmp_path):
     assert serve["tokens_equal"] and serve["mesh_prefill_logits_max_abs_err"] == 0.0
     assert "phase 11 (c): build_prefill_step + build_decode_step" in out.stdout
     sharded = got["record"]["mesh_serve"]
-    for arch in ("zamba2-1.2b", "seamless-m4t-large-v2"):
+    for arch in ("zamba2-1.2b", "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b"):
         for dtype in ("float32", "bfloat16"):
             rec = sharded[arch][dtype]
             assert rec["first_tokens_equal"], (arch, dtype)
             assert all(e <= lim for e, lim in zip(rec["rel_err_by_step"], rec["limit_by_step"]))
+    trained = got["record"]["mesh_train"]
+    assert trained["arch"].startswith("zamba2-1.2b") and trained["optimizer"] == "sgdm"
+    assert trained["shape"] == [2, 2] and trained["params_held"] > 0
+    # the unsharded float32 step and every rank against the float64 witness
+    for key in ("loss", "grad_norm"):
+        want = trained["witness"][key]
+        assert np.isfinite(want)
+        for got_v in trained[f"{key}_by_rank"] + [trained["unsharded"][key]]:
+            assert abs(got_v - want) <= 1e-4 * abs(want), (key, got_v, want)
+    # every parameter, those that start at zero too, within 1e-4 of the
+    # witness's update (the half ulp of its value aside)
+    errs = trained["update_rel_err"]
+    assert len(errs) == 5 and all(e <= 1e-4 for e in errs.values()), errs
+    assert trained["reckoned_peak_gb"] > 0

@@ -17,11 +17,15 @@ and its collective bytes from the compiled HLO (``roofline_terms``).  Each
 side runs in processes of its own, all at once: process groups and XLA's
 device count are global state.
 
-* FLOPs within ``FLOP_BAND`` of the JAX package's, or, where the unsharded
-  step's band in ``tests/test_torch_roofline.py`` (``BANDS``) is wider
-  than ``FLOP_BAND``, within that band plus ``FLOP_BAND_EXTRA``: the
-  sharded steps differ as the unsharded ones do (the MoE's dispatch by
-  index, the sLSTM's backward) and by how each partitions its work.
+* A train step's FLOPs within ``TRAIN_FLOP_BAND`` of the JAX package's,
+  but for the MoE's (``INDEX_DISPATCH``), whose dispatch by index counts
+  other work than the JAX package's one-hot products.
+* The MoE's train step and every prefill and decode step within
+  ``FLOP_BAND``, or, where the unsharded step's band in
+  ``tests/test_torch_roofline.py`` (``BANDS``) is wider than
+  ``FLOP_BAND``, within that band plus ``FLOP_BAND_EXTRA``: the sharded
+  steps differ as the unsharded ones do (the MoE's dispatch by index, the
+  sLSTM's backward) and by how each partitions its work.
 * Collective bytes at most ``COLLECTIVE_RATIO`` times the JAX package's.
 
 ``MEASURED`` holds the ratios measured (port / JAX) when the file was
@@ -48,28 +52,32 @@ ARCHS = ["mistral-nemo-12b", "gemma3-27b", "internvl2-26b", "phi3.5-moe-42b-a6.6
 KINDS = ["train", "prefill", "decode"]
 FLOP_BAND = 0.2
 FLOP_BAND_EXTRA = 0.1
+# a train step's FLOPs (the MoE's aside) within 1 +- TRAIN_FLOP_BAND of the
+# JAX package's: no rank repeats another's work (measured within 3.3 %)
+TRAIN_FLOP_BAND = 0.05
+INDEX_DISPATCH = "phi3.5-moe-42b-a6.6b"
 COLLECTIVE_RATIO = 1.5
 # (arch, kind) -> (FLOPs, collective bytes), port / JAX, measured
 MEASURED = {
-    ("mistral-nemo-12b", "train"): (1.154, 0.875),
+    ("mistral-nemo-12b", "train"): (1.000, 0.601),
     ("mistral-nemo-12b", "prefill"): (0.979, 1.000),
     ("mistral-nemo-12b", "decode"): (0.977, 1.001),
-    ("gemma3-27b", "train"): (1.125, 0.848),
+    ("gemma3-27b", "train"): (0.975, 0.566),
     ("gemma3-27b", "prefill"): (0.975, 1.000),
     ("gemma3-27b", "decode"): (0.974, 1.001),
-    ("internvl2-26b", "train"): (1.042, 0.458),
+    ("internvl2-26b", "train"): (0.993, 0.432),
     ("internvl2-26b", "prefill"): (0.978, 1.000),
     ("internvl2-26b", "decode"): (0.977, 1.001),
-    ("phi3.5-moe-42b-a6.6b", "train"): (0.859, 1.131),
-    ("phi3.5-moe-42b-a6.6b", "prefill"): (0.855, 0.671),
-    ("phi3.5-moe-42b-a6.6b", "decode"): (0.985, 0.518),
-    ("zamba2-1.2b", "train"): (1.118, 0.759),
+    ("phi3.5-moe-42b-a6.6b", "train"): (0.837, 1.051),
+    ("phi3.5-moe-42b-a6.6b", "prefill"): (0.855, 0.465),
+    ("phi3.5-moe-42b-a6.6b", "decode"): (0.985, 0.360),
+    ("zamba2-1.2b", "train"): (0.982, 0.569),
     ("zamba2-1.2b", "prefill"): (0.943, 0.548),
-    ("zamba2-1.2b", "decode"): (0.941, 1.110),
-    ("xlstm-125m", "train"): (1.033, 0.875),
+    ("zamba2-1.2b", "decode"): (0.941, 0.741),
+    ("xlstm-125m", "train"): (1.033, 0.830),
     ("xlstm-125m", "prefill"): (0.871, 0.434),
     ("xlstm-125m", "decode"): (0.915, 1.042),
-    ("seamless-m4t-large-v2", "train"): (1.166, 0.754),
+    ("seamless-m4t-large-v2", "train"): (1.002, 0.552),
     ("seamless-m4t-large-v2", "prefill"): (1.000, 1.000),
     ("seamless-m4t-large-v2", "decode"): (0.964, 1.001),
 }
@@ -183,6 +191,9 @@ def counts():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_per_chip_counts_match_the_jax_package(counts, arch, kind):
     (flops, coll), (jflops, jcoll) = counts[arch][0][kind], counts[arch][1][kind]
-    band = max(FLOP_BAND, BANDS.get((arch, kind), (0.0, 0.0))[0] + FLOP_BAND_EXTRA)
+    if kind == "train" and arch != INDEX_DISPATCH:
+        band = TRAIN_FLOP_BAND
+    else:
+        band = max(FLOP_BAND, BANDS.get((arch, kind), (0.0, 0.0))[0] + FLOP_BAND_EXTRA)
     assert abs(flops / jflops - 1) <= band, (flops / jflops, band, MEASURED[arch, kind])
     assert coll <= COLLECTIVE_RATIO * jcoll, (coll / jcoll, MEASURED[arch, kind])

@@ -48,11 +48,11 @@ torch.set_num_threads(1)
 TIMEOUT = 120        # seconds, every rank
 B, S, STEPS = 4, 16, 4
 TOL = 1e-4           # relative to the largest value of each quantity
-# bfloat16 against float32 (chip_smoke.py phase 11 (d)'s two models): the
+# bfloat16 against float32 (chip_smoke.py phase 11 (d)'s three models): the
 # unsharded port's distance at most BF16_JAX_RATIO times the JAX package's,
 # the mesh's at most BF16_MESH_RATIO (chip_smoke.MESH_BF16_RATIO) times the
 # unsharded port's
-BF16_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2")
+BF16_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b")
 BF16_JAX_RATIO, BF16_MESH_RATIO = 2.0, 1.5
 CASES = [("mistral-nemo-12b", (2, 2)), ("mistral-nemo-12b", (1, 4)), ("gemma3-27b", (2, 2)),
          ("internvl2-26b", (2, 2)), ("phi3.5-moe-42b-a6.6b", (2, 2)), ("zamba2-1.2b", (2, 2)),

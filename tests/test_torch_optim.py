@@ -59,10 +59,15 @@ def _close(got: np.ndarray, want: np.ndarray, tol: float, what: str) -> None:
 
 
 def _port_groups(tree: dict, dtype, device) -> dict:
-    """The numpy tree as the port's groups: "stack" as a list of members."""
+    """The numpy tree as the port's groups: "stack" as a list of members.
+
+    A copy, never a view: ``jnp.asarray`` of a 64-byte aligned numpy array
+    on the CPU shares its buffer, and the JAX update is dispatched
+    asynchronously, so the port's in-place update of a view could write the
+    parameters the JAX update has yet to read."""
     out = {}
     for k, v in tree.items():
-        t = torch.as_tensor(np.asarray(v, np.float32), device=device).to(dtype)
+        t = torch.tensor(np.asarray(v, np.float32), device=device).to(dtype)
         out[k] = list(t.unbind(0)) if k == "stack" else t
     return out
 
