@@ -481,7 +481,7 @@ STEP_SERVE_ARCH, STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS = (
 # on one H100 (NVIDIA H100 80GB HBM3, 700 W) zamba2's unsharded bfloat16
 # run is 0.53 of the largest logit from its float32 twin over the 512-token
 # prefill and 8 steps with random weights, so no bfloat16 run that sums in
-# another order comes within HANDOFF_REL of it (tests/test_torch_mesh_serve.py
+# another order comes within HANDOFF_REL of it (tests/test_torch_mesh_serve_bf16.py
 # holds the port's bfloat16 distance from float32 to the JAX package's)
 MESH_SERVE_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b")
 # phi3.5-moe at full width (d_model 4,096, 16 experts of d_ff 6,400) and

@@ -48,12 +48,6 @@ torch.set_num_threads(1)
 TIMEOUT = 120        # seconds, every rank
 B, S, STEPS = 4, 16, 4
 TOL = 1e-4           # relative to the largest value of each quantity
-# bfloat16 against float32 (chip_smoke.py phase 11 (d)'s three models): the
-# unsharded port's distance at most BF16_JAX_RATIO times the JAX package's,
-# the mesh's at most BF16_MESH_RATIO (chip_smoke.MESH_BF16_RATIO) times the
-# unsharded port's
-BF16_ARCHS = ("zamba2-1.2b", "seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b")
-BF16_JAX_RATIO, BF16_MESH_RATIO = 2.0, 1.5
 CASES = [("mistral-nemo-12b", (2, 2)), ("mistral-nemo-12b", (1, 4)), ("gemma3-27b", (2, 2)),
          ("internvl2-26b", (2, 2)), ("phi3.5-moe-42b-a6.6b", (2, 2)), ("zamba2-1.2b", (2, 2)),
          ("xlstm-125m", (2, 2)), ("seamless-m4t-large-v2", (2, 2))]
@@ -148,50 +142,15 @@ def test_sharded_serving_matches_unsharded_and_jax(arch, mesh, tmp_path):
             assert _rel(out[name], jcaches[name]) <= TOL, (r, name, "JAX")
 
 
+def _step_rel(prefill, logits, ref_prefill, ref_logits) -> np.ndarray:
+    """A run's largest logit error at the prefill and at each decode step,
+    each over the reference run's largest logit (prefill and steps)."""
+    scale = max(float(np.abs(ref_prefill).max()), float(np.abs(ref_logits).max()))
+    return np.array([float(np.abs(prefill - ref_prefill).max())] +
+                    [float(np.abs(a - b).max()) for a, b in zip(logits, ref_logits)]) / scale
+
+
 def _run_rel(prefill, logits, ref_prefill, ref_logits) -> float:
     """A run's largest logit error (the prefill's and the steps') over the
     reference run's largest logit."""
-    scale = max(float(np.abs(ref_prefill).max()), float(np.abs(ref_logits).max()))
-    return max(float(np.abs(prefill - ref_prefill).max()),
-               float(np.abs(logits - ref_logits).max())) / scale
-
-
-@pytest.mark.parametrize("arch", BF16_ARCHS)
-def test_sharded_bfloat16_as_near_float32_as_unsharded_and_jax(arch, tmp_path):
-    """In bfloat16, on the same weights (drawn in bfloat16, upcast for
-    float32) and tokens: the unsharded port's logits no farther from its
-    float32 run's than BF16_JAX_RATIO times the JAX package's bfloat16 run
-    is from its float32 run, and each rank of the 2 × 2 mesh no farther
-    from the float32 run than BF16_MESH_RATIO times the unsharded bfloat16
-    run; the first step's greedy tokens the unsharded run's.  The witness,
-    at reduced depth on the CPU, for ``chip_smoke.py`` phase 11 (d)'s
-    bfloat16 limit on the card."""
-    cfg = get_config(arch).reduced()
-    half = dataclasses.replace(cfg, dtype="bfloat16")
-    rng = np.random.default_rng(5)
-    prompt = {k: (v if k == "tokens" else np.asarray(jnp.asarray(v, jnp.bfloat16), np.float32))
-              for k, v in _prompt(cfg).items()}
-    toks = rng.integers(0, cfg.vocab_size, (B, STEPS)).astype(np.int32)
-    total = S + (cfg.frontend_tokens if cfg.frontend == "vit_stub" else 0)
-    jhalf, jprefill16, jlogits16, _, _ = _jax_serve(arch, prompt, toks, total, "bfloat16")
-    jfull = jax.tree.map(lambda a: a.astype(jnp.float32), jhalf)
-    _, jprefill, jlogits, _, _ = _jax_serve(arch, prompt, toks, total, "float32", jfull)
-    model = lm_params_from_jax(jax.tree.map(np.asarray, jfull), build_model(cfg, device="cpu"))
-    model16 = build_model(half, device="cpu")
-    with torch.no_grad():
-        for w, p in zip(model16.parameters(), model.parameters()):
-            w.copy_(p)
-    prefill, logits, _ = _port_serve(model, cfg, prompt, toks, total)
-    prefill16, logits16, _ = _port_serve(model16, half, prompt, toks, total)
-    inputs = {"arch": np.array(arch), "dtype": np.array("bfloat16"), "decode": toks,
-              **{f"b:{k}": v for k, v in prompt.items()},
-              **{f"p:{n}": p.detach().numpy() for n, p in model.named_parameters()}}
-    ranks = run_ranks(tmp_path, "serve", inputs, 4, timeout=TIMEOUT)
-    jax_off = _run_rel(jprefill16, jlogits16, jprefill, jlogits)
-    port_off = _run_rel(prefill16, logits16, prefill, logits)
-    assert 0 < port_off <= BF16_JAX_RATIO * jax_off, (port_off, jax_off)
-    first = np.argmax(logits16[0], axis=-1)
-    for r, out in enumerate(ranks):
-        mesh_off = _run_rel(out["prefill"], out["logits"], prefill, logits)
-        assert mesh_off <= BF16_MESH_RATIO * port_off, (r, mesh_off, port_off)
-        assert (out["next"][:, 0] == first).all(), (r, out["next"][:, 0], first)
+    return float(_step_rel(prefill, logits, ref_prefill, ref_logits).max())
