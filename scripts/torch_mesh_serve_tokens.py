@@ -5,15 +5,13 @@ each rank's from the unsharded bfloat16 run, at the prefill and at each
 step (over the float32 run's largest logit, as ``chip_smoke.rel_by_step``),
 the first step's greedy tokens of both, the unsharded first step's gap
 between its two largest logits by row, and how many of the greedy tokens
-agree.  ``--lowered`` runs the port, in this process and in the ranks, on
-the JAX package's lowering of its activations (``tests/_torch_lowered.py``).
+agree.
 
-    python3 scripts/torch_mesh_serve_tokens.py [--lowered]     # on the card
+    python3 scripts/torch_mesh_serve_tokens.py     # on the card
 
 It needs one card (about 100 s; no kernel is built).
 """
 
-import argparse
 import json
 import multiprocessing
 import shutil
@@ -27,31 +25,16 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tests")]
 
 
-def rank(r: int, world: int, tmp: str, lowered: bool) -> None:
-    import chip_smoke as CS
-
-    if lowered:
-        from _torch_lowered import install
-        install()
-    CS.mesh_serve_rank(r, world, tmp)
-
-
 def main() -> int:
     import torch
 
     import chip_smoke as CS
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--lowered", action="store_true")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    if args.lowered:
-        from _torch_lowered import install
-        install()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -75,7 +58,7 @@ def main() -> int:
             "device": "cuda", "shape": list(CS.MESH_SERVE_SHAPE),
             "archs": list(CS.MESH_SERVE_ARCHS), "traffic": [b, prompt, steps], "reduced": False}))
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=rank, args=(r, world, str(tmp), args.lowered))
+        procs = [ctx.Process(target=CS.mesh_serve_rank, args=(r, world, str(tmp)))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -92,8 +75,7 @@ def main() -> int:
                 p.kill()
                 p.join()
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"activations {'lowered' if args.lowered else 'as the port has them'}: "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"served in {time.perf_counter() - t0:.1f} s")
     for arch in CS.MESH_SERVE_ARCHS:
         f32, ref = refs[arch, "float32"], refs[arch, "bfloat16"]
         scale = max(float(f32["prefill"].abs().max()), float(f32["logits"].abs().max()))

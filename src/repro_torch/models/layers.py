@@ -23,6 +23,7 @@ encoder K/V at ``pos = enc_len - 1`` with no window and no softcap.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -455,18 +456,55 @@ def mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
+_WIDE = (torch.float32, torch.float64)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the JAX package's program computes it: ``x * (1 /
+    (1 + exp(-x)))``, every op in ``x.dtype``, so a bfloat16 operand is
+    rounded after each op (``F.silu`` computes in float32 and rounds once:
+    it differs on 74,726 of 200,000 bfloat16 draws from N(0, 16)).  In
+    float32 and float64 it is ``F.silu``: there the two differ only by
+    float32 rounding, which every float32 tolerance covers, and ``F.silu``
+    is one launch on a card where the lowering is five."""
+    if x.dtype in _WIDE:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))      # reciprocal(y) is 1 / y rounded once
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default) as the JAX
+    package's program computes it: ``x * (0.5 * (1 + tanh(c * (x + k ·
+    x³))))`` with c = sqrt(2/π) and k = 0.044715 cast to ``x.dtype`` first
+    and every op in ``x.dtype``.  In float32 and float64 it is
+    ``F.gelu(approximate="tanh")``, for the reasons :func:`silu` gives (one
+    launch on a card where the lowering is nine)."""
+    if x.dtype in _WIDE:
+        return F.gelu(x, approximate="tanh")
+    c, k = _rounded(math.sqrt(2 / math.pi), x.dtype), _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1 + torch.tanh(c * (x + k * (x * (x * x))))))
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as JAX casts a constant to the operand's dtype."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """GELU is the tanh approximation, ``jax.nn.gelu``'s default.  The down
-    projection is ``partition.row_split``'s (its rows split on a mesh)."""
+    """GELU is the tanh approximation, ``jax.nn.gelu``'s default; both
+    activations round as the JAX package's do (:func:`silu`,
+    :func:`gelu_tanh`).  The down projection is ``partition.row_split``'s
+    (its rows split on a mesh)."""
     if cfg.mlp_type == "swiglu":
-        return row_split(F.silu(x @ p["wg"]) * (x @ p["wu"]), p["wd"])
+        return row_split(silu(x @ p["wg"]) * (x @ p["wu"]), p["wd"])
     if cfg.mlp_type == "geglu":
-        return row_split(F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"]), p["wd"])
+        return row_split(gelu_tanh(x @ p["wg"]) * (x @ p["wu"]), p["wd"])
     if cfg.mlp_type == "squared_relu":
         h = F.relu(x @ p["wi"])
         return row_split(h * h, p["wd"])
     if cfg.mlp_type == "gelu":
-        return row_split(F.gelu(x @ p["wi"], approximate="tanh"), p["wd"])
+        return row_split(gelu_tanh(x @ p["wi"]), p["wd"])
     raise ValueError(f"unknown mlp_type {cfg.mlp_type}")
 
 

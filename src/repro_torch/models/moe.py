@@ -45,6 +45,7 @@ from torch.distributed.tensor import Partial
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.partition import PLAIN, ModelAxis, mesh_of, on_local_shards, shards
+from repro_torch.models.layers import gelu_tanh, silu
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["MOE_SEGMENT", "moe_specs", "moe_apply", "route", "capacity", "load_balancing_loss"]
@@ -167,10 +168,10 @@ def _moe_dispatch(p: Params, x: torch.Tensor, cfg: ArchConfig, axis: ModelAxis =
         expert_in = axis.scatter_batch(expert_in, 1)
     if cfg.mlp_type in ("swiglu", "geglu"):
         gate = torch.bmm(expert_in, p["wg"])
-        gate = F.silu(gate) if cfg.mlp_type == "swiglu" else F.gelu(gate, approximate="tanh")
+        gate = silu(gate) if cfg.mlp_type == "swiglu" else gelu_tanh(gate)
         h = gate * torch.bmm(expert_in, p["wu"])
     else:
-        h = F.gelu(torch.bmm(expert_in, p["wi"]), approximate="tanh")
+        h = gelu_tanh(torch.bmm(expert_in, p["wi"]))
     expert_out = torch.bmm(h, p["wd"])
     if by_capacity:
         expert_out = axis.join_batch(expert_out, 1)

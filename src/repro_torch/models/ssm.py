@@ -43,6 +43,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.partition import (PLAIN, ModelAxis, cache_placements, mesh_of,
                                           on_local_shards, row_split, shards, split_heads)
+from repro_torch.models.layers import silu
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["CHUNK", "mamba_specs", "mamba_apply", "mamba_init_state", "mamba_decode",
@@ -235,7 +236,7 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, chunk: int = CHUNK,
             conv_w = torch.cat([conv_w[:, h0 * head_dim:h1 * head_dim], conv_w[:, d_inner:]], -1)
             dt_bias, a_log, d_skip = dt_bias[h0:h1], a_log[h0:h1], d_skip[h0:h1]
         conv, pad = _causal_conv(conv_w, torch.cat([xr, b, c], dim=-1))
-        xr, b, c = torch.split(F.silu(conv), [xr.shape[-1], n, n], dim=-1)
+        xr, b, c = torch.split(silu(conv), [xr.shape[-1], n, n], dim=-1)
 
         dt = F.softplus(dt.float() + dt_bias)
         xh = split_heads(xr, h1 - h0, head_dim).float()

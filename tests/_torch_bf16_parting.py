@@ -1,14 +1,15 @@
 """Where the port's bfloat16 serving run and the JAX package's part, on the
 CPU, at the reduced phi3.5-moe-42b-a6.6b config:
 
-    PYTHONPATH=src python tests/_torch_bf16_parting.py [--seed 11] [--lowered]
+    PYTHONPATH=src python tests/_torch_bf16_parting.py [--seed 11]
 
 It runs itself again in a child process whose ``XLA_FLAGS`` end with
 ``--xla_allow_excess_precision=false`` (``tests/_torch_jax_declared.py``),
 so the JAX package rounds where its program says.  It prints:
 
 1. the activations on 200,000 bfloat16 values: ``F.silu`` and ``F.gelu``
-   and the JAX package's lowering of them (``tests/_torch_lowered.py``),
+   (which round once) and the port's ``layers.silu`` and
+   ``layers.gelu_tanh`` (the JAX package's lowering, every op rounded),
    each against ``jax.nn.silu`` and ``jax.nn.gelu``: values that differ;
 2. for the draw of ``--seed`` (weights ``PRNGKey(seed)``, prompt and
    tokens ``default_rng(seed)``; seed 0 is the test's draw, prompt seed 3
@@ -24,7 +25,6 @@ so the JAX package rounds where its program says.  It prints:
 4. the port's and the JAX package's bfloat16 distance from their float32
    runs at the prefill and each step (``test_torch_mesh_serve._step_rel``).
 
-``--lowered`` runs the port on the lowering (``_torch_lowered.install``).
 """
 
 import argparse
@@ -62,15 +62,15 @@ def activations():
     import torch
     import torch.nn.functional as F
 
-    import _torch_lowered as LOW
+    from repro_torch.models import layers as L
 
     x = jnp.asarray(np.random.default_rng(0).standard_normal(200_000) * 4, jnp.bfloat16)
     xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
-    for name, port, lowered in (("silu", F.silu, LOW.silu),
-                                ("gelu", lambda t: F.gelu(t, approximate="tanh"), LOW.gelu)):
+    for name, once, port in (("silu", F.silu, L.silu),
+                             ("gelu", lambda t: F.gelu(t, approximate="tanh"), L.gelu_tanh)):
         want = jax.jit(getattr(jax.nn, name))(x)
         print(f"1. {name} on {x.size:,} bfloat16 values against jax.nn.{name}: F.{name} "
-              f"{differ(port(xt), want)}; the lowering {differ(lowered(xt), want)}")
+              f"{differ(once(xt), want)}; the port's {differ(port(xt), want)}")
 
 
 def record(modules, calls: list):
@@ -137,18 +137,17 @@ def moe_parts(jp, tp, x16, cfg, jcfg) -> dict:
     out["gate product"] = (g, gt)
     out["up product"] = (u, torch.bmm(ein, tp["wu"]))
     out["activation, on the JAX package's gate product"] = (
-        act, MOE.F.silu(torch.from_numpy(f32(g)).to(torch.bfloat16)))
+        act, MOE.silu(torch.from_numpy(f32(g)).to(torch.bfloat16)))
     out["down product, on the JAX package's h"] = (
         down, torch.bmm(torch.from_numpy(f32(h)).to(torch.bfloat16), tp["wd"]))
     return out
 
 
-def run(seed: int, lowered: bool) -> None:
+def run(seed: int) -> None:
     import jax
     import jax.numpy as jnp
     import torch
 
-    import _torch_lowered as LOW
     import test_torch_mesh_serve as T
     from _torch_jax_declared import declared_serve
     from repro.configs import get_config as jax_config
@@ -163,8 +162,6 @@ def run(seed: int, lowered: bool) -> None:
     from repro_torch.models import moe as PM
 
     activations()
-    if lowered:
-        LOW.install()
     pseed, tseed = (3, 5) if seed == 0 else (seed, seed)
     cfg = get_config(ARCH).reduced()
     half = dataclasses.replace(cfg, dtype="bfloat16")
@@ -180,7 +177,7 @@ def run(seed: int, lowered: bool) -> None:
         jcalls.clear()
         with jax.disable_jit():
             _, ep, el, _, _ = T._jax_serve(ARCH, prompt, toks, T.S, "bfloat16", jhalf)
-    print(f"2. seed {seed}{', the port on the lowering' if lowered else ''}: the JAX package "
+    print(f"2. seed {seed}: the JAX package "
           f"compiled equals its run op by op: prefill {np.array_equal(cp, ep)}, steps "
           f"{[bool(np.array_equal(a, b)) for a, b in zip(cl, el)]}")
     jfull = jax.tree.map(lambda a: a.astype(jnp.float32), jhalf)
@@ -228,13 +225,12 @@ def run(seed: int, lowered: bool) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--lowered", action="store_true")
     args = ap.parse_args()
     if FLAG not in os.environ.get("XLA_FLAGS", "").split():
         env = {**os.environ, "XLA_FLAGS": f"{os.environ.get('XLA_FLAGS', '')} {FLAG}".strip(),
                "JAX_PLATFORMS": "cpu"}
         return subprocess.run([sys.executable, __file__] + sys.argv[1:], env=env).returncode
-    run(args.seed, args.lowered)
+    run(args.seed)
     return 0
 
 

@@ -17,9 +17,7 @@ With ``--mesh`` each draw is also served on the test's 2 × 2 mesh of 4
 gloo processes (``tests/_torch_ranks.py serve``): rank 0's bfloat16
 distance from the unsharded bfloat16 run at each point, whether its first
 step's greedy tokens are the unsharded run's, and the unsharded first
-step's gap between its two largest logits, by row.  With ``--lowered`` the
-port (and the mesh's ranks) run on the JAX package's lowering of the
-activations (``tests/_torch_lowered.py``).
+step's gap between its two largest logits, by row.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_bf16_seeds.py \\
         phi3.5-moe-42b-a6.6b --seeds 0 1 2 3
@@ -49,16 +47,13 @@ from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 
-def mesh(arch: str, model, prompt, toks, prefill16, logits16, prefill, logits,
-         lowered: bool) -> dict:
+def mesh(arch: str, model, prompt, toks, prefill16, logits16, prefill, logits) -> dict:
     """Rank 0 of the 2 × 2 mesh in bfloat16 against the unsharded bfloat16 run."""
     from _torch_ranks import run_ranks
 
     inputs = {"arch": np.array(arch), "dtype": np.array("bfloat16"), "decode": toks,
               **{f"b:{k}": v for k, v in prompt.items()},
               **{f"p:{n}": p.detach().numpy() for n, p in model.named_parameters()}}
-    if lowered:
-        inputs["lowered"] = np.array(True)
     with tempfile.TemporaryDirectory() as tmp:
         r0 = run_ranks(Path(tmp), "serve", inputs, 4, timeout=T.TIMEOUT)[0]
     scale = max(float(np.abs(prefill).max()), float(np.abs(logits).max()))   # float32's
@@ -70,8 +65,8 @@ def mesh(arch: str, model, prompt, toks, prefill16, logits16, prefill, logits,
             "unsharded_top2_gap": (top2[:, 1] - top2[:, 0]).tolist()}
 
 
-def one_seed(arch: str, seed: int, prompt_seed: int, toks_seed: int, with_mesh: bool = False,
-             lowered: bool = False) -> dict:
+def one_seed(arch: str, seed: int, prompt_seed: int, toks_seed: int,
+             with_mesh: bool = False) -> dict:
     cfg = get_config(arch).reduced()
     half = dataclasses.replace(cfg, dtype="bfloat16")
     prompt = {"tokens": np.random.default_rng(prompt_seed).integers(
@@ -103,7 +98,7 @@ def one_seed(arch: str, seed: int, prompt_seed: int, toks_seed: int, with_mesh: 
     row = {"seeds": [seed, prompt_seed, toks_seed],
            **{k: T._step_rel(*v).tolist() for k, v in runs.items()}}
     if with_mesh:
-        row.update(mesh(arch, model, prompt, toks, prefill16, logits16, prefill, logits, lowered))
+        row.update(mesh(arch, model, prompt, toks, prefill16, logits16, prefill, logits))
     return row
 
 
@@ -112,16 +107,11 @@ def main() -> int:
     ap.add_argument("arch")
     ap.add_argument("--seeds", type=int, nargs="+", default=list(range(8)))
     ap.add_argument("--mesh", action="store_true", help="also serve each draw on the mesh")
-    ap.add_argument("--lowered", action="store_true",
-                    help="the port on the JAX package's lowering of the activations")
     args = ap.parse_args()
-    if args.lowered:
-        import _torch_lowered
-        _torch_lowered.install()
     rows = []
     # the test's own draw first (weights from key 0, prompt seed 3, tokens 5)
     for seed, prompt_seed, toks_seed in [(0, 3, 5)] + [(s, s, s) for s in args.seeds]:
-        row = one_seed(args.arch, seed, prompt_seed, toks_seed, args.mesh, args.lowered)
+        row = one_seed(args.arch, seed, prompt_seed, toks_seed, args.mesh)
         rows.append(row)
         print(f"seeds {seed}, {prompt_seed}, {toks_seed}: bfloat16 from float32, prefill then "
               "each step; port " + " ".join(f"{e:.4f}" for e in row["port"]) + "; JAX package "

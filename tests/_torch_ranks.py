@@ -34,11 +34,10 @@ and then ``steps`` calls of ``build_decode_step`` (``chip_smoke.py``'s
 (2 × 2 without one), the weights placed by ``shard_model`` with
 ``serve_rules``, as the dry-run places a serving cell's; IN_NPZ holds the
 arch, the parameters, the prompt (``b:``), the tokens each step decodes
-(``decode``) and, optionally, the model's ``dtype`` and ``lowered`` (the
-port on the JAX package's lowering of its activations,
-``tests/_torch_lowered.py``, for diagnostics).  The output holds
-the prefill's logits, each step's logits (what ``decode_step`` returned
-to the builder) and next tokens, every cache after the last step, all
+(``decode``) and, optionally, the model's ``dtype``.  The output holds
+the prefill's logits and greedy token (``first``), each step's logits
+(what ``decode_step`` returned to ``build_decode_step``'s step) and next
+tokens, every cache after the last step, all
 gathered, and ``placed``: whether every cache was a DTensor placed by
 ``cache_sharding_rules`` after the prefill and after each step.
 """
@@ -132,10 +131,6 @@ def serve(rank: int, world: int, data, dev: torch.device) -> dict:
     cfg = get_config(str(data["arch"])).reduced()
     if "dtype" in data.files:
         cfg = dataclasses.replace(cfg, dtype=str(data["dtype"]))
-    if "lowered" in data.files:
-        sys.path.insert(0, str(Path(__file__).resolve().parent))
-        from _torch_lowered import install
-        install()
     shape_ = tuple(int(v) for v in data["mesh"]) if "mesh" in data.files else (2, 2)
     mesh = init_device_mesh(dev.type, shape_, mesh_dim_names=("data", "model"))
     model = build_model(cfg, device=dev)
@@ -149,7 +144,8 @@ def serve(rank: int, world: int, data, dev: torch.device) -> dict:
                              data["decode"].shape[1], torch.from_numpy(data["decode"]),
                              lambda caches: caches_placed(mesh, caches))
     out = {"placed": np.array(run["placed"]), "prefill": run["prefill"].numpy(),
-           "logits": run["logits"].numpy(), "next": run["greedy"].numpy()}
+           "logits": run["logits"].numpy(), "first": run["first"].numpy(),
+           "next": run["greedy"].numpy()}
     for i, entry in enumerate(run["caches"]):
         for kind, state in entry.items():
             for name, c in state.items():
