@@ -51,7 +51,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    decodes through ``mds_decode`` (``decode_with_kernel``), planning with
    the LSTM on the card, under the trace's speeds.  A 600,000 × 2,048
    tenant, C = 20, is encoded on the host in float64 as the reference does;
-   then 20 ``GeneralS2C2`` matvec rounds, one ``matmul`` round at B = 8
+   then 10 ``GeneralS2C2`` matvec rounds, one ``matmul`` round at B = 8
    and one at B = 20, each within 1e-3 of a float64 product.  The counters
    are zeroed before each group of rounds and read after it, once every
    worker is idle.  It fails unless every B = 1 chunk launch took the
@@ -84,7 +84,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        sequence launch under grad per epoch and one per evaluation (302,
        the per-step cell never), its test MAPE within 1e-3 (relative) of
        the JAX package's training (the committed parameters) and below
-       the untrained model's; 30 epochs all plain on the card and on the
+       the untrained model's; 10 epochs all plain on the card and on the
        CPU are timed beside it;
    (b) logistic regression and the SVM by 100 steps of gradient descent
        on ``make_lr_dataset(240,000, 5,000)`` with A·w coded ((12, 10)
@@ -123,12 +123,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        1e-3 of the dense product;
    (b)-(d) the model of (a) kept, the same requests served with each
        decode step between CUDA events (median beside its bound: the bytes
-       of the weights and the KV cache over 3.35 TB/s), tokens/s, and five
+       of the weights and the KV cache over 3.35 TB/s), tokens/s, and two
        steps under ``torch.profiler`` for the kernels' time and the
        device's idle share: smoke traffic, at a context of at most 16;
    (d2) the same at a real context: 4 prompts of 2,048 tokens through
-       ``LM.prefill``, then 16 greedy decode steps between CUDA events and
-       five under the profiler;
+       ``LM.prefill``, then 8 greedy decode steps between CUDA events and
+       two under the profiler;
    (e) prefill of 12 tokens then one decode step against 13 decode steps
        from scratch, within 5e-2 of the largest logit (bfloat16 through
        40 layers);
@@ -145,38 +145,66 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 8. serving the other decoder families through the same entry point, one
    arch at a time, each freed before the next (phase 7's model is freed
-   before the first): phi3.5-moe-42b-a6.6b at full width (d_model 4,096,
-   16 experts of d_ff 6,400) in bfloat16 at the most layers that leave
-   8 GiB of the card free after the build (28 of 32 on an 80 GB card; the
-   depth is printed), zamba2-1.2b (38 Mamba-2 layers, 7 applications of
+   before the first), random weights from seed 0 in bfloat16 at full
+   width: phi3.5-moe-42b-a6.6b (d_model 4,096, 16 experts of d_ff 6,400)
+   at 28 of 32 layers, zamba2-1.2b (38 Mamba-2 layers, 7 applications of
    the shared attention block) and xlstm-125m (9 mLSTM and 3 sLSTM
-   layers) whole, random weights from a seed:
+   layers) whole, gemma3-27b whole (62 layers, 52 local with a 1,024-token
+   window and 10 global, head_dim 168, GeGLU, the attention logits'
+   softcap, the head tied to the embedding), internvl2-26b whole (48
+   layers, the projector of 256 image embeddings of width 3,200, a
+   92,553-token vocabulary padded to 92,672), mixtral-8x22b at 14 of 56
+   layers (8 experts top-2, a 4,096-token window on every layer) and
+   nemotron-4-340b at 8 of 96 layers (d_model 18,432, head_dim 192,
+   squared ReLU, LayerNorm): the cut archs at the most layers that leave
+   8 GiB of the card free after the build (the depth is printed; the
+   phase fails, never shrinks, where they do not fit);
    (a) ``launch.serve.run(parse_args(["--arch", A, "--coded-head"]),
        model)`` at the JAX package's defaults, the launches counted from 0:
        exactly one ``mds_encode``, one ``coded_matvec`` (the multi design,
        at each head's shape) and one ``mds_decode``, the coded head within
        1e-3 of the dense product, 6 requests of 8 tokens served; the card's
-       peak memory of the build and of the serve;
+       peak memory of the build and of the serve.  gemma3's tied head gets
+       no coded head (none launched, as the JAX package's entry point
+       builds none); nemotron runs without ``--coded-head`` (none
+       launched), since the head's float32 copies do not fit beside its
+       layers;
    (b) the same requests with each decode step between CUDA events
        (tokens/s, the median step at B = 4 beside its bytes bound: every
-       weight, the K/V and the recurrent states; for phi also the bound of
-       the experts the step's tokens are routed to, counted outside the
-       timed steps), five steps under the profiler (kernel time, idle
-       share), then the same after a 4 × 2,048-token ``LM.prefill``;
+       weight, the K/V within each layer's window and the recurrent
+       states; for a MoE also the bound of the experts the step's tokens
+       are routed to, counted outside the timed steps), two steps under
+       the profiler (kernel time, idle share), then the same after a 4 ×
+       2,048-token ``LM.prefill`` (internvl2's with 256 random image
+       embeddings ahead of each prompt; mixtral also after 4 × 4,608
+       tokens), printing the attention caches' lengths: past its window a
+       local layer decodes from a rotating cache of the window's length;
    (c) prefill of 12 tokens then one decode step against 13 decode steps
-       from scratch in float32, within 2e-3 of the largest logit: zamba2
-       and xlstm whole, phi over its first 4 layers at full width (about
-       21 GB) with capacity factor 8;
-   (d) bfloat16 against float32 of the same weights: for zamba2 and xlstm
-       16 decode steps at B = 4 of the whole model in both, every block of
-       every layer (attention, MLP, Mamba-2, mLSTM, sLSTM) run again in
-       float32 on the bfloat16 run's input and state, within 2e-2 (an
-       mLSTM block 0.1), and the logits after the first step within 0.25
-       (the later steps' drift is printed); phi's layer-0 MoE block on
-       4 × 16 normed positions within 2e-2, over the tokens routed alike
-       in both, any token routed
-       otherwise printed with its float32 gates and failing the run unless
-       they lie within twice the router's own bfloat16 error.
+       from scratch in float32 (internvl2: prefill of its image embeddings
+       and 12 tokens then a step, against the prefill of 13), within 2e-3
+       of the largest logit;
+   (d) bfloat16 against float32 of the same weights: a MoE's layer-0 block
+       on 4 × 16 normed positions, over the tokens routed alike in both
+       (a token routed otherwise is printed with its float32 gates and
+       fails the run unless they lie within twice the router's own
+       bfloat16 error), and internvl2's projector on (b)'s embeddings, on
+       the model of (a); then 16 decode steps at B = 4 in bfloat16 with
+       every norm, attention, MLP and recurrent block and ``head_apply`` run
+       again in float32 on the bfloat16 run's input and state, within
+       2e-2 (an mLSTM block 0.1), and the same steps after the weights are
+       upcast in place, the first step's logits within 0.25 (a MoE's over
+       the tokens routed alike; the later steps' drift is printed): on the
+       model of (a) for zamba2 and xlstm, else on a bfloat16 draw of the
+       first layers at full width from the same seed (the same embedding
+       and first layers: phi 4, gemma3 6, so that global layer 5 is in,
+       internvl2 4, mixtral 4, nemotron 1), on whose float32 weights (c)
+       runs;
+   (e) the coded head at each untied head (``hold_coded_head``: exactly
+       one launch of each kernel, each held against its plain version;
+       nemotron's 18,432 × 256,000 head built here, after its layers are
+       released, its launches in its record and not in
+       ``families_launches``), then the multi design in turns against
+       ``x @ head`` and the plain version, beside its bound.
 9. the encoder-decoder, seamless-m4t-large-v2 whole (24 encoder and 24
    decoder layers, d_model 1,024, vocab 256,206 padded to 256,256, 1.63 B
    parameters, 3.27 GB in bfloat16, random from seed 0), driven through
@@ -184,10 +212,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    must refuse the arch with ``SystemExit``, as the JAX package's does;
    (a) smoke traffic, B = 4 sequences of 16 frames and 8 prompt tokens,
        then 8 greedy steps, and (b) a real context, 4 × (2,048 frames +
-       2,048 tokens), then 16 steps: the prefill with its encoder and
+       2,048 tokens), then 8 steps: the prefill with its encoder and
        decoder timed apart between CUDA events, each step between CUDA
        events beside its bound (the decoder's weights, the head, the self
-       K/V and every layer's cross K/V), five steps under the profiler;
+       K/V and every layer's cross K/V), two steps under the profiler;
        then each encoder block on (b)'s frames in bfloat16 against float32
        of the same weights on the same input, within 2e-2;
    (c) on a float32 copy of the same weights, prefill(16 frames, 12 tokens)
@@ -211,12 +239,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         example's 48 cut for the script's time), 15 steps into a temporary
         checkpoint directory (24 microbatches a step), group 3 dead in
         exactly the 5 steps 10-14; every loss finite and
-        ``loss_improved=True`` printed; then ``main`` again with 17 steps,
-        which must resume from the step-14 checkpoint and run the 2 steps
+        ``loss_improved=True`` printed; then ``main`` again with 16 steps,
+        which must resume from the step-14 checkpoint and run the step
         left; each step's time (the card synchronised at its start) and
         the peak memory;
     (b) zamba2-1.2b whole (38 Mamba-2 layers and the shared attention
-        block, 1.17 B parameters) for 2 coded AdamW steps over 8 groups,
+        block, 1.17 B parameters) for 1 coded AdamW step over 8 groups,
         its peak memory beside the reckoning of the JAX package's
         functional step (parameters, AdamW moments, 8 float32 coded trees,
         the decoded tree and its /n copy, a microbatch's gradients);
@@ -250,7 +278,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         the ranks' peak allocations beside ``mesh_memory_reckoning`` and the
         card's memory in use;
     (b) ``build_train_step`` on zamba2-1.2b whole at ``train_4k``'s 4,096
-        tokens, its global batch of 256 cut to 8, ``grad_accum_for``'s
+        tokens, its global batch of 256 cut to 4, ``grad_accum_for``'s
         microbatches, ``cfg.optimizer``: 1 step, its loss and gradient norm
         finite, its time and the peak memory;
     (c) ``build_prefill_step`` and ``build_decode_step`` on mistral-nemo-12b
@@ -300,8 +328,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 12. the dry-run, the roofline and the cluster demo:
     (a) ``python -m repro_torch.launch.dryrun`` in three subprocesses on
-        the host (the card hidden from them), started together and
-        collected after (b) and (c): zamba2-1.2b × ``train_4k`` × pod at two
+        the host (the card hidden from them), started together before
+        phase 10, so that they run on the host's idle cores beside phases
+        10 and 11, and collected after (b) and (c): zamba2-1.2b ×
+        ``train_4k`` × pod at two
         microbatches (``REPRO_GRAD_ACCUM=2``, so the step splits the
         gathered batch), mistral-nemo-12b ×
         ``decode_32k`` × pod and zamba2-1.2b × ``decode_32k`` × multipod,
@@ -326,7 +356,7 @@ the in-turn times as JSON, the per-kernel record as JSON (``ms``,
 ``plain_ms`` and ``library_ms`` are device times; ``*call_ms`` the per-call
 times; ``launches`` the main path's, ``cluster_launches`` the cluster
 phase's, ``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
-point's, ``families_launches`` phase 8's three entry points',
+point's, ``families_launches`` phase 8's entry points',
 ``encdec_launches`` phase 9's coded head's, ``train_launches`` phase 10's,
 all 0, ``mesh_launches`` phase 11 (a)'s, summed over the ranks, and for the
 predictor's kernel the parent's, ``demo_launches`` phase 12 (c)'s) and the
@@ -342,6 +372,8 @@ the multi design at the lm_head's shape has phase 7's.
 
 from __future__ import annotations
 
+import atexit
+import collections.abc
 import contextlib
 import json
 import math
@@ -350,6 +382,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -362,11 +395,12 @@ sys.path.insert(0, str(ROOT / "src"))
 # as in examples/pagerank.py), with d = 2,048 float32 columns
 N, K, CHUNKS, ROWS, COLS, ITERS = 12, 10, 20, 600_000, 2_048, 30
 # the cluster phase: the same code, D, C and d
-CL_ROUNDS, CL_ROW_COST, CL_WIDTHS = 20, 1e-5, (8, 20)
+CL_ROUNDS, CL_ROW_COST, CL_WIDTHS = 10, 1e-5, (8, 20)     # 10 rounds, not 20: the script's time
 MULTI_WIDTHS = (2, 4, 8, 16)    # coded_matvec's multi design in turns at a chunk
 WINDOW = 32                     # the predictor's window (SpeedPredictor's default)
 REL_ERR_LIMIT = 1e-3
 F32_TOL = 2e-4                  # a float32 kernel against its plain version (rtol = atol)
+HEAD_SLAB = 8_192               # columns of a coded head's float64 reference at a time
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12         # float32 outside the tensor cores
 REPS = 20
@@ -380,7 +414,7 @@ PRED_TRACES = dict(n_nodes=20, n_iters=400, noise_sigma=0.08, p_become_straggler
                    p_recover=0.25, drift_sigma=0.05)
 PRED_SEED, PRED_EPOCHS = 7, 300
 PRED_MAPE_RTOL = 1e-3           # the port's training against the JAX package's, test MAPE
-PLAIN_EPOCHS = 30               # all-plain training, timed per epoch
+PLAIN_EPOCHS = 10               # all-plain training, timed per epoch (not 30: the script's time)
 SVM_OBJECTIVE_RTOL = 3e-5       # 10x the worst reading of PR 17's runs (2.8e-6)
 LR_ROWS, LR_COLS, LR_ITERS, LR_STEP = 240_000, 5_000, 100, 0.5
 PR_NODES, PR_DEGREE, PR_ITERS, PR_DAMPING = 32_768, 16, 40, 0.85
@@ -389,20 +423,41 @@ HESSIAN, POLY_NODES = 6_000, [0, 1, 3, 4, 5, 7, 8, 9, 11]
 GC_S, GC_BATCH, GC_LIVE_SETS = 2, 24_000, 3
 # phase 7, serving: mistral-nemo-12b at full width and depth in bfloat16,
 # with the JAX package's serving defaults and coded-head stragglers
-SERVE_ARCH, SERVE_SPEEDS, PROFILED_STEPS = "mistral-nemo-12b", [1, 1, 0.2, 1, 1, 0.5], 5
+# PROFILED_STEPS: 2, not 5, since phase 8 serves seven archs: the profiler's
+# host time grows with its events, about 1 s a gemma3-27b step, the count
+# and kernel time alike (scripts/torch_profiler_cost.py)
+SERVE_ARCH, SERVE_SPEEDS, PROFILED_STEPS = "mistral-nemo-12b", [1, 1, 0.2, 1, 1, 0.5], 2
 HANDOFF_REL = 5e-2              # bfloat16 prefill handoff, over the largest logit
 # a decode step at a real context: 4 prompts of 2,048 tokens through
-# LM.prefill, then greedy steps, each between CUDA events
-LONG_BATCH, LONG_CONTEXT, LONG_STEPS = 4, 2_048, 16
+# LM.prefill, then greedy steps, each between CUDA events (8, not 16, since
+# phase 8 serves seven archs)
+LONG_BATCH, LONG_CONTEXT, LONG_STEPS = 4, 2_048, 8
 BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense bfloat16 tensor cores
-# phase 8, the other decoder families through the same entry point:
-# phi3.5-moe at full width and MOE_LAYERS of its 32 layers (73.35 GB in
-# bfloat16, the most that leave FREE_AFTER_BUILD free on an 80 GB card;
-# the phase fails where they do not fit), zamba2-1.2b and xlstm-125m whole
-FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-125m")
+# phase 8, the other decoder families through the same entry point, each at
+# full width in bfloat16 from seed 0: zamba2-1.2b, xlstm-125m, gemma3-27b
+# and internvl2-26b whole; phi3.5-moe, mixtral-8x22b and nemotron-4-340b at
+# the depth of FAMILY_LAYERS, the most layers that leave FREE_AFTER_BUILD
+# free on an 80 GB card (73.35, 70.92 and 74.14 GB; the phase fails where
+# they do not fit, it never shrinks them)
+FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-125m", "gemma3-27b",
+                "internvl2-26b", "mixtral-8x22b", "nemotron-4-340b")
 MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 28
+FAMILY_LAYERS = {MOE_ARCH: MOE_LAYERS, "mixtral-8x22b": 14, "nemotron-4-340b": 8}
 FREE_AFTER_BUILD = 8 * 2**30    # room for the caches, the prefill and the coded head
-MOE_F32_LAYERS = 4              # phi's float32 handoff at full width: about 21 GB
+# (c) and (d) on a bfloat16 draw of the first layers at full width where the
+# whole model's float32 twin does not fit (upcast in place, in float32:
+# phi 4 layers 21.9, gemma3 6 16.0, internvl2 4 10.9, mixtral 4 41.7,
+# nemotron 1 51.6 GB); zamba2's and xlstm's on the model of (a)
+F32_LAYERS = {MOE_ARCH: 4, "gemma3-27b": 6, "internvl2-26b": 4, "mixtral-8x22b": 4,
+              "nemotron-4-340b": 1}
+# served without --coded-head: nemotron's coded head in float32 (the dense
+# head 18.9 GB and 6 coded partitions of 64,000 rows, 28.3 GB) does not fit
+# beside its layers; (e) builds and holds it alone
+UNCODED_ENTRY = ("nemotron-4-340b",)
+# (b)'s real contexts: LONG_CONTEXT, and for mixtral also one past its
+# 4,096-token window, so that its caches rotate (gemma3's 1,024-token window
+# is passed at LONG_CONTEXT)
+LONG_CONTEXTS = {"mixtral-8x22b": (LONG_CONTEXT, 4_608)}
 F32_HANDOFF_REL = 2e-3          # float32 prefill handoff (tests/test_models.py's 2e-3)
 # bfloat16 against float32 of the same weights (measured on one H100 in
 # three runs): one block on the same input, at most 8.2e-3 for phi's MoE
@@ -443,17 +498,18 @@ ENCDEC_CONTEXT = 2_048          # frames and prompt tokens of (b)
 TRAIN_ARCH = "xlstm-125m"
 TRAIN_BIG = "zamba2-1.2b"
 # (15 steps hold the loop's whole 5-step dead window, 10-14, before the
-# checkpoint; a restart to 17 resumes 2; 20 and 24 took the phase 500 s of
+# checkpoint; a restart to 16 resumes 1; 20 and 24 took the phase 500 s of
 # a 1,200 s script on a slow host.  Seq 32, not the example's 48, since
 # phase 11 (d)'s MoE and (e) came: an xlstm step 7.6 s, not 12.4, on one
 # H100 (NVIDIA H100 80GB HBM3, 700 W); at 24 the 15 steps did not lower
 # the loss, 11.2020 to 11.2826.  Since (e)'s float64 witness, for the
-# script's time: the restart resumes 2 steps, not 3, zamba2 takes
-# BIG_STEPS = 2, not 3, and the sLSTM's long scan is 1,024, not 2,048)
-TRAIN_STEPS = (15, 17, 16, 32)          # steps, steps after the restart, batch, seq
+# script's time: the sLSTM's long scan is 1,024, not 2,048; since phase 8
+# serves seven archs: the restart resumes 1 step, not 3, and zamba2 takes
+# BIG_STEPS = 1, not 3, each timed up to the final checkpoint)
+TRAIN_STEPS = (15, 16, 16, 32)          # steps, steps after the restart, batch, seq
 TRAIN_STEPS_REDUCED = (15, 18, 8, 16)   # the CPU test's
 DEAD_STEPS = 5                          # train_loop.train's window for a killed group
-BIG_STEPS = 2
+BIG_STEPS = 1
 SLSTM_BS = (2, 64)
 SLSTM_LONG_S = {False: 1_024, True: 256}
 SLSTM_BWD_REL = 1e-4                    # of each gradient's largest value
@@ -468,9 +524,10 @@ PROFILED_MICROBATCHES = 2
 # context to a STEP_SERVE_PROMPT-token prompt
 MESH_ITERS, MESH_TIMEOUT = 10, 600
 MESH_SIZE_REDUCED = (4, 3, 6, 360, 16, 3)   # the CPU test's n, k, C, rows, cols, iterations
-# (b) takes one step since phase 11 (d) came (two before), for the script's
-# time; the CPU test's reduced run two
-STEP_TRAIN_ARCH, STEP_TRAIN_BATCH, STEP_TRAIN_STEPS = "zamba2-1.2b", 8, 1
+# (b) takes one step since phase 11 (d) came (two before), and 4 sequences
+# since phase 8 serves seven archs (8 before; phase 12 (b) counts the same
+# step again), for the script's time; the CPU test's reduced run two
+STEP_TRAIN_ARCH, STEP_TRAIN_BATCH, STEP_TRAIN_STEPS = "zamba2-1.2b", 4, 1
 STEP_TRAIN_STEPS_REDUCED = 2
 STEP_SERVE_ARCH, STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS = (
     "mistral-nemo-12b", 4, 2_048, 16)
@@ -530,9 +587,10 @@ MESH_TRAIN_TIMEOUT = 600
 # phase 12, the dry-run, the roofline and the cluster demo: (a) cells of
 # python -m repro_torch.launch.dryrun, (arch, shape, mesh, REPRO_GRAD_ACCUM
 # or 0 for the config's), each a subprocess on the CPU within
-# DRYRUN_TIMEOUT; the train cell at two microbatches, which runs the
-# step's split of the gathered batch, since its eight take the dry-run 4-9
-# minutes on a CPU (the pod sweep of launch.dryrun --all)
+# DRYRUN_TIMEOUT, started before phase 10 so that they run on the host's
+# idle cores beside phases 10 and 11; the train cell at two microbatches,
+# which runs the step's split of the gathered batch, since its eight take
+# the dry-run 4-9 minutes on a CPU (the pod sweep of launch.dryrun --all)
 DRYRUN_CELLS = (("zamba2-1.2b", "train_4k", "pod", 2),
                 ("mistral-nemo-12b", "decode_32k", "pod", 0),
                 ("zamba2-1.2b", "decode_32k", "multipod", 0))
@@ -1473,9 +1531,11 @@ def decode_step_bound(model, b: int, pos: int, expert_share: float = 1.0,
                       enc_len: int = 0) -> tuple:
     """The least time one decode step of ``b`` tokens at position ``pos``
     takes on ``model``: every weight of the decoder read once (b rows of
-    the embedding table; of the experts' weights, ``expert_share``; an
-    encoder-decoder's encoder and ``frontend_proj`` not at all), every
-    self-attention application's valid K/V read and one position written,
+    the embedding table, all of it where it is the tied head; of the
+    experts' weights, ``expert_share``; an encoder-decoder's encoder,
+    ``frontend_proj`` and a VLM's ``projector`` not at all), every
+    self-attention application's valid K/V read (a local layer's window
+    of it at most) and one position written,
     an encoder-decoder's cross K/V of ``enc_len`` positions read in every
     layer, each recurrent state read and written, the logits written;
     against the bfloat16 peak for 2 operations a weight a token (k of E
@@ -1485,8 +1545,8 @@ def decode_step_bound(model, b: int, pos: int, expert_share: float = 1.0,
     n_bytes = b * cfg.d_model * item + b * cfg.padded_vocab * 4
     ops_params = 0.0
     for name, p in model.named_parameters():
-        if name == "embed.embedding" or name.split(".")[0] in ("frontend_proj", "enc",
-                                                                "enc_norm"):
+        if (name == "embed.embedding" and not cfg.tie_embeddings) or name.split(".")[0] in (
+                "frontend_proj", "projector", "enc", "enc_norm"):
             continue
         expert = ".moe.w" in name
         n_bytes += p.numel() * p.dtype.itemsize * (expert_share if expert else 1.0)
@@ -1494,32 +1554,44 @@ def decode_step_bound(model, b: int, pos: int, expert_share: float = 1.0,
     caches = model.init_cache(b, 1, 1) if cfg.is_encdec else model.init_cache(b, 1)
     attn_kinds = ("attn", "shared", "self")
     attn = sum(1 for entry in caches for kind in entry if kind in attn_kinds)
+    local = sum(1 for slot in getattr(model, "slots", ())
+                if slot.local and slot.kind in ("attn_mlp", "attn_moe"))
+    # positions a self-attention application reads: all, or its window's
+    seen = (attn - local) * (pos + 1) + local * min(pos + 1, cfg.sliding_window)
     cross = sum(1 for entry in caches if "cross" in entry)
     kv = 2 * b * cfg.kv_dim * item
     states = sum(t.numel() * t.element_size() for entry in caches
                  for kind, state in entry.items() if kind not in attn_kinds + ("cross",)
                  for t in state.values())
-    n_bytes += attn * kv * (pos + 2) + cross * kv * enc_len + 2 * states
-    flops = 2 * b * ops_params + 4 * b * cfg.q_dim * (attn * (pos + 1) + cross * enc_len)
+    n_bytes += kv * (seen + attn) + cross * kv * enc_len + 2 * states
+    flops = 2 * b * ops_params + 4 * b * cfg.q_dim * (seen + cross * enc_len)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def device_kernel_ms(fn, steps: int) -> tuple:
     """Device time of the kernels ``fn`` launches, from ``torch.profiler``,
-    over ``steps`` calls: (busy ms a call, host ms a call, kernel launches a
-    call, the top kernels), or None where the profiler records no device
-    time."""
+    over ``steps`` calls after one more that the profiler runs but does not
+    count (a profile's first kernels can miss its record: on one H100 two
+    counted xlstm-125m steps read 516 launches a step, five 575): (busy ms a
+    call, host ms a call, kernel launches a call, the top kernels), or None
+    where the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1)) as prof:
+        fn()
         torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fn()
+            if i == steps - 1:              # the counted steps end on the card first
+                torch.cuda.synchronize()
+            prof.step()
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
@@ -1601,8 +1673,10 @@ def short_context_busy(model, dev, warm=None):
     return device_kernel_ms(lambda: model.decode_step(tok, caches, next(pos)), PROFILED_STEPS)
 
 
-def long_context_decode(model, dev, label: str, context: int = LONG_CONTEXT) -> dict:
-    """LONG_BATCH prompts of ``context`` tokens through ``LM.prefill``, then
+def long_context_decode(model, dev, label: str, context: int = LONG_CONTEXT,
+                        image_embeds=None) -> dict:
+    """LONG_BATCH prompts of ``context`` tokens (after ``image_embeds``,
+    where given, through the VLM's projector) through ``LM.prefill``, then
     LONG_STEPS greedy decode steps, each between CUDA events, then
     PROFILED_STEPS under the profiler; fails where the logits are not
     finite.  Returns prefill_s, step_ms, decode_s, busy (``device_kernel_ms``'s
@@ -1614,9 +1688,12 @@ def long_context_decode(model, dev, label: str, context: int = LONG_CONTEXT) -> 
     cfg = model.cfg
     toks = torch.as_tensor(np.random.default_rng(4).integers(
         1, cfg.vocab_size, (LONG_BATCH, context)), device=dev)
+    if image_embeds is not None:
+        context += image_embeds.shape[1]            # the positions the prefill fills
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = model.prefill(toks, max_seq=context + LONG_STEPS + PROFILED_STEPS + 4)
+    logits, caches = model.prefill(toks, image_embeds=image_embeds,
+                                   max_seq=context + LONG_STEPS + PROFILED_STEPS + 4)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     cur = torch.argmax(logits, -1)[:, None]
@@ -1635,11 +1712,11 @@ def long_context_decode(model, dev, label: str, context: int = LONG_CONTEXT) -> 
     if not torch.isfinite(logits).all():
         raise RuntimeError(f"{label}: a decode step at a context of "
                            f"{context} gave logits that are not finite")
-    pos = iter(range(context + LONG_STEPS, context + LONG_STEPS + PROFILED_STEPS))
+    pos = iter(range(context + LONG_STEPS, context + LONG_STEPS + PROFILED_STEPS + 1))
     busy = device_kernel_ms(lambda: model.decode_step(cur, caches, next(pos)), PROFILED_STEPS)
     return dict(prefill_s=prefill_s, step_ms=[s_.elapsed_time(e_) for s_, e_ in long_steps],
                 decode_s=decode_s, busy=busy, caches=caches, token=cur,
-                pos=context + LONG_STEPS + PROFILED_STEPS)
+                pos=context + LONG_STEPS + PROFILED_STEPS + 1)
 
 
 def hold_coded_head(label: str, head, dev, compare) -> dict:
@@ -1648,8 +1725,11 @@ def hold_coded_head(label: str, head, dev, compare) -> dict:
     SERVE_SPEEDS, with exactly one ``mds_encode``, one multi-design
     ``coded_matvec`` and one ``mds_decode`` launched and the logits within
     REL_ERR_LIMIT of float64; then each launch held against its plain
-    version on the same tensors at F32_TOL.  Returns the measurements and
-    the tensors, by name."""
+    version on the same tensors at F32_TOL.  The float64 product and the
+    plain versions are taken a slab at a time (HEAD_SLAB columns, one
+    chunk's rows, four blocks), so that nemotron's head (18.9 GB in
+    float32, its coded partitions 28.3 GB) is held on one card.  Returns
+    the measurements and the tensors, by name."""
     import numpy as np
     import torch
 
@@ -1678,25 +1758,32 @@ def hold_coded_head(label: str, head, dev, compare) -> dict:
            {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
     expect(f"{label}: the coded head's coded_matvec design", designs,
            {"stream": 0, "split": 0, "multi": 1, "general": 0})
-    head_err = rel_err(got, x.double() @ head.double())
+    want = torch.cat([x.double() @ head[:, c:c + HEAD_SLAB].double()
+                      for c in range(0, vocab, HEAD_SLAB)], 1)
+    head_err = rel_err(got, want)
+    del want
     if not (got.shape == (2, vocab) and head_err <= REL_ERR_LIMIT):
         raise RuntimeError(f"{label}: coded head {tuple(got.shape)}, error {head_err:.3e}")
     torch.cuda.empty_cache()
     n_, rows, _ = ch.coded.shape
     rpc = rows // 8
     g = torch.as_tensor(ch.code.generator, dtype=torch.float32, device=dev)
-    blocks = pad_rows(head.T, 4 * 8).reshape(4, rows, d).contiguous()
-    errs = {"mds_encode": compare(f"{label}: lm_head mds_encode (6, 4) x (4, {rows}, {d})",
-                                  ch.coded, mds_encode_plain(g, blocks), F32_TOL)}
+    blocks = pad_rows(head.T, 4 * 8).unflatten(0, (4, rows))      # a view of the head
+    errs = {"mds_encode": max(
+        compare(f"{label}: lm_head mds_encode (6, 4) x (4, {rows}, {d}), rows {r0}-{r0 + rpc}",
+                ch.coded[:, r0:r0 + rpc], mds_encode_plain(g, blocks[:, r0:r0 + rpc]), F32_TOL)
+        for r0 in range(0, rows, rpc))}
     torch.cuda.empty_cache()
     begin, count, weights, responders = ch.cm.plan_tables(general_allocation(speeds, 4, 8))
     ids, gather = ch.cm.device_tables(begin, count, responders, dev)
     view, xt = ch.coded.view(n_ * rows, d), x.T.contiguous()
     nb = ids.numel()
     parts = cmv.coded_matvec_multi(view, xt, ids, rpc)
-    errs["coded_matvec"] = compare(f"{label}: lm_head coded_matvec multi, nb = {nb}, "
-                                   f"br = {rpc}, d = {d}, B = 2", parts,
-                                   cmv.coded_matvec_plain(view, xt, ids, rpc), F32_TOL)
+    errs["coded_matvec"] = max(
+        compare(f"{label}: lm_head coded_matvec multi, nb = {nb}, br = {rpc}, d = {d}, B = 2, "
+                f"blocks {j}-{j + 4}", parts[j:j + 4],
+                cmv.coded_matvec_plain(view, xt, ids[j:j + 4], rpc), F32_TOL)
+        for j in range(0, nb, 4))
     flat = parts.reshape(nb, rpc * 2)
 
     def y_out():
@@ -1713,8 +1800,33 @@ def hold_coded_head(label: str, head, dev, compare) -> dict:
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (rtol = atol = {F32_TOL})", flush=True)
     return dict(ch=ch, x=x, speeds=speeds, view=view, xt=xt, ids=ids, rpc=rpc, nb=nb,
-                weights=weights, gather=gather, flat=flat, y_out=y_out, g=g, blocks=blocks,
+                weights=weights, gather=gather, flat=flat, y_out=y_out, g=g,
                 head_err=head_err, encode_s=encode_s, counts=counts, errs=errs)
+
+
+def head_in_turns(label: str, hold: dict, head, in_turns) -> dict:
+    """The multi design at a coded head held by :func:`hold_coded_head`, in
+    turns against ``x @ head`` (the dense product, which reads as many
+    bytes) and the plain version, beside its bound: the record's fields."""
+    from repro_torch.kernels import coded_matvec as cmv
+
+    view, xt, ids, rpc, nb, x = (hold[k] for k in ("view", "xt", "ids", "rpc", "nb", "x"))
+    d = head.shape[0]
+    versions = {"multi": lambda: cmv.coded_matvec_multi(view, xt, ids, rpc),
+                "x @ head (dense)": lambda: x @ head,
+                "plain": lambda: cmv.coded_matvec_plain(view, xt, ids, rpc)}
+    names = list(versions)
+    times = in_turns(f"coded_matvec multi, {label} lm_head", versions, names + names[::-1])
+    best = {name: min(t["device_ms"]) for name, t in times.items()}
+    b_ms, b_by = bound_ms(4 * (nb * rpc * d + d * 2 + nb + nb * rpc * 2), 2 * nb * rpc * d * 2)
+    rec = dict(head_multi_ms=best["multi"], head_dense_ms=best["x @ head (dense)"],
+               head_plain_ms=best["plain"], head_bound_ms=b_ms, head_bound_by=b_by,
+               head_shape=f"nb = {nb} blocks of {rpc} rows, d = {d}, float32, B = 2")
+    print(f"{label}: coded_matvec multi at the lm_head, {rec['head_shape']}: best of two "
+          f"{best['multi']:.4f} ms against a bound of {b_ms:.4f} ({b_by}, "
+          f"{b_ms / best['multi']:.1%}); x @ head {best['x @ head (dense)']:.4f}, plain "
+          f"{best['plain']:.4f}", flush=True)
+    return rec
 
 
 def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
@@ -1728,6 +1840,7 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     import numpy as np
     import torch
 
+    from repro_torch.core.coding import pad_rows
     from repro_torch.kernels import coded_matvec as cmv
     from repro_torch.kernels import ops
     from repro_torch.kernels.mds_decode import mds_decode_into_plain
@@ -1872,12 +1985,13 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
 
     # (f) the coded lm_head at its full shape: (6, 4) code, 8 chunks, float32
     h = hold_coded_head("serve (f)", head, dev, compare)
-    ch, x, speeds, view, xt, ids, rpc, nb, weights, gather, flat, y_out, g, blocks = (
+    ch, x, speeds, view, xt, ids, rpc, nb, weights, gather, flat, y_out, g = (
         h[k] for k in ("ch", "x", "speeds", "view", "xt", "ids", "rpc", "nb", "weights",
-                       "gather", "flat", "y_out", "g", "blocks"))
+                       "gather", "flat", "y_out", "g"))
     head_err, encode_s, head_counts, errs = (h[k] for k in ("head_err", "encode_s", "counts",
                                                             "errs"))
     n_, rows, d = ch.coded.shape
+    blocks = pad_rows(head.T, 4 * 8).reshape(4, rows, d).contiguous()
 
     # (g) times: the whole call on the host's clock, and the device work of
     # the kernels against torch.matmul and the plain versions, in turns
@@ -1947,15 +2061,16 @@ def serve_phase(dev, call_ms, timed, compare, in_turns) -> tuple:
     return launches, record, rec
 
 
-# -- 8. serving the MoE, hybrid and xLSTM decoders ---------------------------
+# -- 8. serving the other decoder families -----------------------------------
 
 class RoutedExperts:
     """While entered, each ``moe_apply`` call also records how many distinct
-    experts its tokens are routed to (a host sync each: outside timed
-    work)."""
+    experts its tokens are routed to, and the experts of each token (a host
+    sync each: outside timed work)."""
 
     def __init__(self):
         self.counts = []
+        self.experts = []
 
     def __enter__(self):
         import torch
@@ -1967,6 +2082,7 @@ class RoutedExperts:
         def counting(p, x, cfg):
             _, _, experts = MOE.route(p, x.reshape(-1, x.shape[-1]), cfg)
             self.counts.append(torch.unique(experts).numel())
+            self.experts.append(experts.sort(-1).values)
             return apply(p, x, cfg)
 
         MOE.moe_apply = counting
@@ -1981,13 +2097,22 @@ class RoutedExperts:
         """The mean share of the experts routed to per call."""
         return statistics.mean(self.counts) / cfg.num_experts
 
+    def alike(self, other: "RoutedExperts", calls: int):
+        """Whether each token of the first ``calls`` calls, one decode step's
+        layers, went to the same experts here as in ``other``."""
+        import torch
+
+        return torch.stack([(a == b).all(-1) for a, b in
+                            zip(self.experts[:calls], other.experts[:calls])]).all(0)
+
 
 class BlockErrors:
     """While entered, each attention, MLP and recurrent block and the logits
     projection that a decode step runs (or each of the functions ``names``)
-    is run again in float32 on float32 copies of its weights, input and
-    cache or state, and its output's error over the float32 output's
-    largest entry is recorded by function name."""
+    is run again in float32 on float32 copies of its weights (each made
+    when the block reads it), input and cache or state, and its output's
+    error over the float32 output's largest entry is recorded by function
+    name."""
 
     NAMES = ("attn_decode", "cross_attn_decode", "mlp_apply", "mamba_decode", "mlstm_decode",
              "slstm_decode", "head_apply")
@@ -2007,15 +2132,34 @@ class BlockErrors:
                 return v.float().clone()
             return {k: up(t) for k, t in v.items()} if hasattr(v, "items") else v
 
+        class Upcast(collections.abc.Mapping):
+            """A block's weights, each copied in float32 where it is read."""
+
+            def __init__(self, p):
+                self.p = p
+
+            def __getitem__(self, key):
+                v = self.p[key]
+                return v.float() if isinstance(v, torch.Tensor) else Upcast(v)
+
+            def __iter__(self):
+                return iter(self.p)
+
+            def __len__(self):
+                return len(self.p)
+
+            def __contains__(self, key):
+                return key in self.p
+
         self._saved = []
         for name in self.names:
             module = L if hasattr(L, name) else SSM
             run = getattr(module, name)
 
-            def checked(p, x, cfg, *rest, run=run, name=name, **kw):
+            def checked(p, x, *rest, run=run, name=name, **kw):
                 ref_rest = [up(r) for r in rest]     # before run writes a cache in place
-                out = run(p, x, cfg, *rest, **kw)
-                ref = run(up(p), x.float(), cfg, *ref_rest, **kw)
+                out = run(p, x, *rest, **kw)
+                ref = run(Upcast(p), x.float(), *ref_rest, **kw)
                 y, y32 = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
                 self.errors.setdefault(name, []).append(rel_err(y, y32.double()))
                 return out
@@ -2046,22 +2190,35 @@ def check_fits(cfg, dev) -> None:
 
 def handoff_error(model, dev, seed: int) -> tuple:
     """prefill(HANDOFF_TOKENS) then one decode step, against decoding all
-    HANDOFF_TOKENS + 1 tokens from scratch: (error over the largest logit,
-    argmax equal)."""
+    HANDOFF_TOKENS + 1 tokens from scratch; for a VLM, whose prompt starts
+    with its image embeddings, which only a prefill takes, against
+    prefill(HANDOFF_TOKENS + 1)'s last logits: (error over the largest
+    logit, argmax equal, what the step was held against)."""
     import numpy as np
     import torch
 
-    n = HANDOFF_TOKENS
-    toks = torch.as_tensor(np.random.default_rng(seed).integers(1, model.cfg.vocab_size,
-                                                                (1, n + 1)), device=dev)
-    _, caches = model.prefill(toks[:, :n], max_seq=n + 1)
-    lg_a, _ = model.decode_step(toks[:, n:n + 1], caches, n)
-    scratch = model.init_cache(1, n + 1)
-    for t in range(n + 1):
-        lg_b, scratch = model.decode_step(toks[:, t:t + 1], scratch, t)
+    cfg, n = model.cfg, HANDOFF_TOKENS
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n + 1)), device=dev)
+    if cfg.frontend == "vit_stub":
+        img = torch.as_tensor(rng.standard_normal((1, cfg.frontend_tokens, cfg.frontend_dim)),
+                              dtype=torch.float32, device=dev)
+        _, caches = model.prefill(toks[:, :n], image_embeds=img, max_seq=img.shape[1] + n + 1)
+        lg_a, _ = model.decode_step(toks[:, n:n + 1], caches, img.shape[1] + n)
+        lg_b, _ = model.prefill(toks, image_embeds=img)
+        what = (f"prefill({cfg.frontend_tokens} image embeddings, {n} tokens) then a decode "
+                f"step against prefill({cfg.frontend_tokens} image embeddings, {n + 1} tokens)")
+    else:
+        _, caches = model.prefill(toks[:, :n], max_seq=n + 1)
+        lg_a, _ = model.decode_step(toks[:, n:n + 1], caches, n)
+        scratch = model.init_cache(1, n + 1)
+        for t in range(n + 1):
+            lg_b, scratch = model.decode_step(toks[:, t:t + 1], scratch, t)
+        what = f"prefill({n}) then a decode step against {n + 1} decode steps from scratch"
     if not torch.isfinite(lg_a).all():
-        raise RuntimeError(f"{model.cfg.name}: the prefill handoff's logits are not finite")
-    return rel_err(lg_a, lg_b.double()), bool(torch.equal(lg_a.argmax(-1), lg_b.argmax(-1)))
+        raise RuntimeError(f"{cfg.name}: the prefill handoff's logits are not finite")
+    return (rel_err(lg_a, lg_b.double()), bool(torch.equal(lg_a.argmax(-1), lg_b.argmax(-1))),
+            what)
 
 
 def moe_bf16_error(model, dev) -> dict:
@@ -2108,13 +2265,162 @@ def moe_bf16_error(model, dev) -> dict:
                 moe_flips=flips)
 
 
-def serve_family(arch: str, dev, compare, reduced: bool) -> tuple:
+def upcast(model):
+    """``model`` made float32 in place, weight by weight (each upcast
+    exactly, its bfloat16 tensor freed before the next is made), so that
+    the card never holds both copies of it; returns it."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.ParameterDict):
+                for key in list(mod.keys()):
+                    mod[key] = nn.Parameter(mod[key].float(), requires_grad=mod[key].requires_grad)
+    model.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    return model
+
+
+def cache_lengths(model, caches) -> dict:
+    """The attention caches' lengths after a prefill, local and global
+    layers apart: {"local" or "global": {length: layers}}."""
+    out = {}
+    for slot, entry in zip(model.slots, caches):
+        if "attn" in entry:
+            kind = out.setdefault("local" if slot.local else "global", {})
+            length = int(entry["attn"]["k"].shape[1])
+            kind[length] = kind.get(length, 0) + 1
+    return out
+
+
+def long_context_record(model, dev, label: str, context: int, image_embeds=None) -> dict:
+    """(b) at a real context: ``long_context_decode``'s numbers beside the
+    step's bound, the routed experts' bound for a MoE, and the caches'
+    lengths, printed and returned."""
+    import torch
+
+    cfg = model.cfg
+    moe = cfg.num_experts > 0
+    long = long_context_decode(model, dev, label, context, image_embeds)
+    med = statistics.median(long["step_ms"])
+    total = context + (0 if image_embeds is None else image_embeds.shape[1])
+    bound, by = decode_step_bound(model, LONG_BATCH, total + LONG_STEPS // 2)
+    rec = dict(context=context, positions=total, prefill_s=long["prefill_s"],
+               step_ms_median=med, step_ms_min=min(long["step_ms"]),
+               step_ms_max=max(long["step_ms"]), step_bound_ms=bound, step_bound_by=by,
+               tokens_per_s=LONG_BATCH * LONG_STEPS / long["decode_s"],
+               cache_lengths=cache_lengths(model, long["caches"]))
+    prompt = (f"{LONG_BATCH} prompts of {context} tokens" if image_embeds is None else
+              f"{LONG_BATCH} prompts of {image_embeds.shape[1]} image embeddings (width "
+              f"{image_embeds.shape[2]}, through the projector) and {context} tokens")
+    line = (f"{label} (b): {prompt}: prefill {long['prefill_s'] * 1e3:.1f} ms on the host's "
+            f"clock; attention caches by length {rec['cache_lengths']}; {LONG_STEPS} decode "
+            f"steps {rec['tokens_per_s']:.1f} tokens/s, a step between CUDA events median "
+            f"{med:.3f} ms (min {rec['step_ms_min']:.3f}, max {rec['step_ms_max']:.3f}) against "
+            f"a bound of {bound:.3f} ms ({by}")
+    if moe:
+        with RoutedExperts() as routed:
+            cur, caches = long["token"], long["caches"]
+            for i in range(3):
+                logits, caches = model.decode_step(cur, caches, long["pos"] + i)
+                cur = torch.argmax(logits, -1)[:, None]
+        share = routed.share(cfg)
+        rec.update(routed_share=share, routed_bound_ms=decode_step_bound(
+            model, LONG_BATCH, total + LONG_STEPS // 2, share)[0])
+        line += (f", every expert read); {share * cfg.num_experts:.2f} experts routed a layer: "
+                 f"bound {rec['routed_bound_ms']:.3f} ms")
+    else:
+        line += ")"
+    if long["busy"] is not None:
+        busy_ms, _, n_kernels, top = long["busy"]
+        rec.update(device_busy_ms=busy_ms, kernel_launches=n_kernels,
+                   idle_share=1 - busy_ms / med, top_kernels=top)
+        line += (f"; under the profiler {n_kernels:.0f} launches and {busy_ms:.3f} ms of kernels "
+                 f"a step, idle {1 - busy_ms / med:.1%}; by kernel: " + "; ".join(
+                     f"{name} {n} {ms:.3f}" for name, n, ms in top))
+    print(line, flush=True)
+    return rec
+
+
+def bf16_against_f32(half, dev, label: str) -> dict:
+    """(d) and (c) on ``half``, a bfloat16 model: 16 decode steps at B = 4
+    with every block and norm run again in float32 (``BlockErrors``), then ``half``
+    upcast in place and the same 16 steps in float32, each step's logits
+    against the bfloat16 run's (for a MoE, the first step's over the tokens
+    routed alike in every layer: a token routed otherwise is printed);
+    then the float32 prefill handoff.  Fails where a block is over BF16_REL
+    (an mLSTM block BF16_MLSTM_REL), the first step's logits over
+    BF16_LOGITS_REL or the handoff over F32_HANDOFF_REL.  Returns the
+    record; ``half`` is float32 after."""
+    import numpy as np
+    import torch
+
+    cfg = half.cfg
+    moe = cfg.num_experts > 0
+    toks = torch.as_tensor(np.random.default_rng(7).integers(1, cfg.vocab_size, (4, 16)),
+                           device=dev)
+    blocks = BlockErrors(BlockErrors.NAMES + ("apply_norm",))
+    routed16, routed32 = (RoutedExperts(), RoutedExperts()) if moe else (None, None)
+    caches, lg16 = half.init_cache(4, 16), []
+    for t in range(16):
+        with blocks, routed16 or contextlib.nullcontext():
+            lg, caches = half.decode_step(toks[:, t:t + 1], caches, t)
+        lg16.append(lg)
+    del caches
+    f32 = upcast(half)
+    torch.cuda.empty_cache()
+    caches, lg32 = f32.init_cache(4, 16), []
+    for t in range(16):
+        with routed32 or contextlib.nullcontext():
+            lg, caches = f32.decode_step(toks[:, t:t + 1], caches, t)
+        lg32.append(lg)
+    del caches
+    rows = (routed16.alike(routed32, len(routed16.experts) // 16) if moe else
+            torch.ones(4, dtype=torch.bool, device=dev))
+    if not rows.any():
+        raise RuntimeError(f"{label}: every token of the first step was routed otherwise in "
+                           "bfloat16 and in float32")
+    errs = [rel_err(lg16[0][rows], lg32[0][rows].double())] + [
+        rel_err(a, b.double()) for a, b in zip(lg16[1:], lg32[1:])]
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(lg16, lg32))
+    worst = {name: max(e) for name, e in blocks.errors.items()}
+    over = {name: e for name, e in worst.items()
+            if not e <= (BF16_MLSTM_REL if name == "mlstm_decode" else BF16_REL)}
+    handoff, same, handoff_what = handoff_error(f32, dev, 3)
+    rec = dict(f32_layers=cfg.num_layers, bf16_block_rel_err=worst, bf16_step_rel_errs=errs,
+               bf16_argmax_agree=agree / 64, bf16_first_step_rows=int(rows.sum()),
+               f32_handoff_rel_err=handoff, f32_handoff_argmax_equal=same,
+               f32_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    routed = ("" if not moe else f" over the {int(rows.sum())} of 4 tokens routed alike in "
+              f"every layer (otherwise: {torch.nonzero(~rows).flatten().tolist()})")
+    print(f"{label} (c): float32, {cfg.num_layers} layers, the bfloat16 weights upcast: "
+          f"{handoff_what}, error {handoff:.3e} of the largest logit (limit "
+          f"{F32_HANDOFF_REL}), argmax equal: {same}; (d) bfloat16 against float32 of the same "
+          f"weights, each block of every layer on the bfloat16 run's input, 16 decode steps at "
+          f"B = 4, the worst by block {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}; "
+          f"the logits after the first step {errs[0]:.3e}{routed} (limit {BF16_LOGITS_REL}), "
+          f"then by step {', '.join(f'{e:.2e}' for e in errs[1:])}, argmax equal at {agree} of "
+          f"64; card peak {rec['f32_peak_gb']:.1f} GB", flush=True)
+    if over:
+        raise RuntimeError(f"{label}: bfloat16 against float32 of the same block, {over} over "
+                           f"{BF16_REL} (mlstm_decode {BF16_MLSTM_REL})")
+    if not errs[0] <= BF16_LOGITS_REL:
+        raise RuntimeError(f"{label}: bfloat16 against float32, the logits of the first decode "
+                           f"step: {errs[0]:.3e} > {BF16_LOGITS_REL}")
+    if not handoff <= F32_HANDOFF_REL:
+        raise RuntimeError(f"{label}: float32 prefill handoff error {handoff:.3e} > "
+                           f"{F32_HANDOFF_REL}")
+    return rec
+
+
+def serve_family(arch: str, dev, compare, in_turns, reduced: bool) -> tuple:
     """Phase 8 for one arch: returns its launches, its record."""
     import contextlib
     import dataclasses
     import io
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -2129,17 +2435,18 @@ def serve_family(arch: str, dev, compare, reduced: bool) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    args = launch_serve.parse_args(["--arch", arch, "--coded-head"]
+    coded = arch not in UNCODED_ENTRY
+    args = launch_serve.parse_args(["--arch", arch] + (["--coded-head"] if coded else [])
                                    + (["--reduced", "--device", "cpu"] if reduced else []))
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        if arch == MOE_ARCH:
+        if arch in FAMILY_LAYERS:
             cfg = get_config(arch)
             if reduced:
                 cfg = cfg.reduced()
             else:
-                cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+                cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS[arch])
                 check_fits(cfg, dev)
             model = build_model(cfg, device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(args.seed))
@@ -2153,36 +2460,50 @@ def serve_family(arch: str, dev, compare, reduced: bool) -> tuple:
     main_s = time.perf_counter() - t0
     counts, designs = ops.launch_counts(), ops.design_counts()["coded_matvec"]
     print(log.getvalue(), end="", flush=True)
+    cfg = model.cfg
+    entry_head = int(coded and not cfg.tie_embeddings)
     expect(f"{label}: serve.run's exit code", rc, 0)
     expect(f"{label}: serve.run's launches", counts,
-           {"coded_matvec": 1, "mds_encode": 1, "mds_decode": 1, "lstm_cell": 0})
+           {"coded_matvec": entry_head, "mds_encode": entry_head, "mds_decode": entry_head,
+            "lstm_cell": 0})
     expect(f"{label}: serve.run's coded_matvec designs", designs,
-           {"stream": 0, "split": 0, "multi": 1, "general": 0})
-    head_err = float(re.search(r"rel_err=(\S+)", log.getvalue())[1])
-    if not head_err <= REL_ERR_LIMIT:
-        raise RuntimeError(f"{label}: the coded head's error {head_err} > {REL_ERR_LIMIT}")
+           {"stream": 0, "split": 0, "multi": entry_head, "general": 0})
     if "6 requests, 48 tokens" not in log.getvalue():
         raise RuntimeError(f"{label}: serve.run did not serve 6 requests of 8 tokens")
-    cfg = model.cfg
+    f32_head_gb = 4 * cfg.d_model * cfg.padded_vocab * (1 + 6 / 4) / 1e9
+    if entry_head:
+        head_err = float(re.search(r"rel_err=(\S+)", log.getvalue())[1])
+        if not head_err <= REL_ERR_LIMIT:
+            raise RuntimeError(f"{label}: the coded head's error {head_err} > {REL_ERR_LIMIT}")
+        head_note = f"error {head_err:.2e}"
+    elif cfg.tie_embeddings:
+        head_err, head_note = None, ("none: the head is the tied embedding, for which "
+                                     "launch.serve builds no coded head, as the JAX package's "
+                                     "entry point does; (e) is skipped")
+    else:
+        head_err, head_note = None, (
+            f"not built here: run without --coded-head, since its float32 copies (the dense "
+            f"head and the 6 coded partitions, {f32_head_gb:.1f} GB) do not fit beside "
+            f"{cfg.num_layers} layers; (e) builds and holds it alone after they are released")
     specs = model.specs()
     rec.update(arch=arch, layers=cfg.num_layers, full_layers=get_config(arch).num_layers,
                d_model=cfg.d_model, params=param_count(specs), gb=tree_bytes(specs) / 1e9,
                build_s=build_s, build_peak_gb=build_peak, main_s=main_s,
                main_peak_gb=torch.cuda.max_memory_allocated() / 1e9, coded_head_err=head_err,
-               head=f"d = {cfg.d_model} x V = {cfg.padded_vocab}", launches=counts,
-               designs=designs)
+               head=f"d = {cfg.d_model} x V = {cfg.padded_vocab}", entry_coded_head=head_note,
+               launches=counts, designs=designs)
     print(f"{label} (a): {cfg.num_layers} of {rec['full_layers']} layers, d_model "
           f"{cfg.d_model}, {rec['params']:,} parameters, {rec['gb']:.3f} GB ({cfg.dtype}); "
           f"built in {build_s:.2f} s (card peak {build_peak:.1f} GB), build and serve.run "
           f"{main_s:.1f} s (card peak {rec['main_peak_gb']:.1f} GB); coded head "
-          f"{rec['head']} error {head_err:.2e}; launches {counts}, coded_matvec by design "
-          f"{designs}", flush=True)
+          f"{rec['head']}: {head_note}; launches {counts}, coded_matvec by design {designs}",
+          flush=True)
     torch.cuda.reset_peak_memory_stats()
 
     # (b) tokens/s and a decode step at a context of at most 16 and after
-    # a prefill of LONG_CONTEXT tokens, beside its bound(s) and its kernels
+    # a prefill of each of the arch's real contexts, beside its bound(s)
+    # and its kernels
     moe = cfg.num_experts > 0
-    context = LONG_CONTEXT if not reduced else 256
     out, serve_s, steps = clocked_serve(model, dev, label)
     tokens = sum(len(v) for v in out.values())
     full = [(pos, ms) for b, pos, ms in steps if b == 4]
@@ -2215,140 +2536,92 @@ def serve_family(arch: str, dev, compare, reduced: bool) -> tuple:
                  f"kernels a step, idle {1 - busy_ms / med:.1%} of the median; by kernel: "
                  + "; ".join(f"{name} {n} {ms:.3f}" for name, n, ms in top))
     print(line, flush=True)
-
-    long = long_context_decode(model, dev, label, context)
-    long_med = statistics.median(long["step_ms"])
-    long_bound, long_by = decode_step_bound(model, LONG_BATCH, context + LONG_STEPS // 2)
-    rec.update(long_context=context, long_prefill_s=long["prefill_s"],
-               long_step_ms_median=long_med, long_step_ms_min=min(long["step_ms"]),
-               long_step_ms_max=max(long["step_ms"]), long_step_bound_ms=long_bound,
-               long_step_bound_by=long_by,
-               long_tokens_per_s=LONG_BATCH * LONG_STEPS / long["decode_s"])
-    line = (f"{label} (b): {LONG_BATCH} prompts of {context} tokens: prefill "
-            f"{long['prefill_s'] * 1e3:.1f} ms on the host's clock; {LONG_STEPS} decode steps "
-            f"{rec['long_tokens_per_s']:.1f} tokens/s, a step between CUDA events median "
-            f"{long_med:.3f} ms (min {rec['long_step_ms_min']:.3f}, max "
-            f"{rec['long_step_ms_max']:.3f}) against a bound of {long_bound:.3f} ms ({long_by}")
-    if moe:
-        with RoutedExperts() as long_routed:
-            cur, caches = long["token"], long["caches"]
-            for i in range(3):
-                logits, caches = model.decode_step(cur, caches, long["pos"] + i)
-                cur = torch.argmax(logits, -1)[:, None]
-        share = long_routed.share(cfg)
-        rec.update(long_routed_share=share, long_routed_bound_ms=decode_step_bound(
-            model, LONG_BATCH, context + LONG_STEPS // 2, share)[0])
-        line += (f", every expert read); {share * cfg.num_experts:.2f} experts routed a layer: "
-                 f"bound {rec['long_routed_bound_ms']:.3f} ms")
-    else:
-        line += ")"
-    if long["busy"] is not None:
-        busy_ms, _, n_kernels, top = long["busy"]
-        rec.update(long_step_device_busy_ms=busy_ms, long_step_kernel_launches=n_kernels,
-                   long_step_idle_share=1 - busy_ms / long_med, long_step_top_kernels=top)
-        line += (f"; under the profiler {n_kernels:.0f} launches and {busy_ms:.3f} ms of kernels "
-                 f"a step, idle {1 - busy_ms / long_med:.1%}; by kernel: " + "; ".join(
-                     f"{name} {n} {ms:.3f}" for name, n, ms in top))
-    print(line, flush=True)
-    del long
+    images = None
+    if cfg.frontend == "vit_stub":
+        images = torch.randn((LONG_BATCH, cfg.frontend_tokens, cfg.frontend_dim), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(5))
+    rec["long"] = [long_context_record(model, dev, label, context, images)
+                   for context in ((256,) if reduced else LONG_CONTEXTS.get(arch, (LONG_CONTEXT,)))]
     rec["serve_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
 
-    # (c) the float32 prefill handoff and (d) bfloat16 against float32 of the
-    # same weights: phi's MoE block on the model of (a), then its first
-    # MOE_F32_LAYERS at full width in float32 (the model of (a) freed first);
-    # zamba2 and xlstm whole, a float32 copy of the model of (a)
-    head = model.embed["head"].detach().float()
-    f32_cfg = dataclasses.replace(cfg, dtype="float32")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # (d) bfloat16 against float32 of the same weights, on the model of (a):
+    # a MoE's layer-0 block and a VLM's projector
+    held = {}
     if moe:
         rec.update(moe_bf16_error(model, dev))
-        bf16_err = rec["moe_bf16_rel_err"]
-        what = (f"layer 0's MoE block on 4 x 16 positions ({len(rec['moe_flips'])} of "
-                f"{rec['moe_tokens']} tokens routed otherwise, near ties: {rec['moe_flips']})")
+        held["moe_apply"] = rec["moe_bf16_rel_err"]
+        print(f"{label} (d): bfloat16 against float32 of the same weights, layer 0's MoE block "
+              f"on 4 x 16 positions ({len(rec['moe_flips'])} of {rec['moe_tokens']} tokens "
+              f"routed otherwise, near ties: {rec['moe_flips']}): {rec['moe_bf16_rel_err']:.3e} "
+              f"(limit {BF16_REL})", flush=True)
+    if images is not None:
+        with torch.no_grad():
+            w = model.projector["w"]
+            img = images.to(w.dtype)
+            held["projector"] = rel_err(img @ w, (img.float() @ w.float()).double())
+        print(f"{label} (d): bfloat16 against float32 of the same weights, the projector on "
+              f"(b)'s {tuple(images.shape)} image embeddings: {held['projector']:.3e} (limit "
+              f"{BF16_REL})", flush=True)
+    over = {name: e for name, e in held.items() if not e <= BF16_REL}
+    if over:
+        raise RuntimeError(f"{label}: bfloat16 against float32, {over} over {BF16_REL}")
+    del images
+    # (e) the coded head at this arch's head, each launch against its plain
+    # version on the same tensors, then the multi design in turns: the head
+    # kept alone, the model of (a) freed, so that nemotron's fits
+    head = None if cfg.tie_embeddings else model.embed["head"].detach()
+    if arch in F32_LAYERS:
         del model
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        f32 = build_model(dataclasses.replace(
-            f32_cfg, num_layers=min(MOE_F32_LAYERS, cfg.num_layers), moe_capacity_factor=8.0),
-            device=dev, generator=gen)
+    if head is None:
+        print(f"{label} (e): skipped, the head is the tied embedding (no coded head)", flush=True)
     else:
-        torch.cuda.reset_peak_memory_stats()
-        f32 = build_model(f32_cfg, device=dev, generator=gen)
-        with torch.no_grad():
-            for dst, src in zip(f32.parameters(), model.parameters()):
-                dst.copy_(src)
-        toks = torch.as_tensor(np.random.default_rng(7).integers(
-            1, cfg.vocab_size, (4, 16)), device=dev)
-        c16, c32 = model.init_cache(4, 16), f32.init_cache(4, 16)
-        errs, agree, blocks = [], 0, BlockErrors()
-        for t in range(16):
-            with blocks:
-                lg16, c16 = model.decode_step(toks[:, t:t + 1], c16, t)
-            lg32, c32 = f32.decode_step(toks[:, t:t + 1], c32, t)
-            errs.append(rel_err(lg16, lg32.double()))
-            agree += int((lg16.argmax(-1) == lg32.argmax(-1)).sum())
-        worst = {name: max(e) for name, e in blocks.errors.items()}
-        over = {name: e for name, e in worst.items()
-                if not e <= (BF16_MLSTM_REL if name == "mlstm_decode" else BF16_REL)}
-        bf16_err = max(e for name, e in worst.items() if name != "mlstm_decode")
-        rec.update(bf16_block_rel_err=worst, bf16_step_rel_errs=errs,
-                   bf16_argmax_agree=agree / 64)
-        what = (f"each block of every layer on the bfloat16 run's input, 16 decode steps at "
-                f"B = 4, the worst by block {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}"
-                f"; the whole model's logits after the first step {errs[0]:.3e} (limit "
-                f"{BF16_LOGITS_REL}), then by step {', '.join(f'{e:.2e}' for e in errs[1:])}, "
-                f"argmax equal at {agree} of 64")
-        del model, c16, c32
-        if over:
-            raise RuntimeError(f"{label}: bfloat16 against float32 of the same block, {over} "
-                               f"over {BF16_REL} (mlstm_decode {BF16_MLSTM_REL})")
-        if not errs[0] <= BF16_LOGITS_REL:
-            raise RuntimeError(f"{label}: bfloat16 against float32, the logits of the first "
-                               f"decode step: {errs[0]:.3e} > {BF16_LOGITS_REL}")
-    if not bf16_err <= BF16_REL:
-        raise RuntimeError(f"{label}: bfloat16 against float32, {what}: {bf16_err:.3e} > "
-                           f"{BF16_REL}")
-    handoff, same = handoff_error(f32, dev, 3)
-    if not handoff <= F32_HANDOFF_REL:
-        raise RuntimeError(f"{label}: float32 prefill handoff error {handoff:.3e} > "
-                           f"{F32_HANDOFF_REL}")
-    rec.update(f32_layers=f32.cfg.num_layers, f32_handoff_rel_err=handoff,
-               f32_handoff_argmax_equal=same, f32_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"{label} (c): float32, {f32.cfg.num_layers} layers"
-          f"{' at full width, capacity factor 8' if moe else ', the whole model'}: "
-          f"prefill({HANDOFF_TOKENS}) then a decode "
-          f"step against {HANDOFF_TOKENS + 1} decode steps from scratch, error {handoff:.3e} of "
-          f"the largest logit (limit {F32_HANDOFF_REL}), argmax equal: {same}; (d) bfloat16 "
-          f"against float32 of the same weights, {what}: {bf16_err:.3e} (limit {BF16_REL}); "
-          f"card peak {rec['f32_peak_gb']:.1f} GB", flush=True)
-    del f32
+        head = head.float()                 # as the model stores it, (d, V); its
+        torch.cuda.empty_cache()            # bfloat16 copy freed and returned to the card
+        hold = hold_coded_head(f"{label} (e)", head, dev, compare)
+        rec.update(head_hold_err=hold["head_err"], head_kernel_vs_plain=hold["errs"],
+                   head_launches=hold["counts"],
+                   head_launches_counted_in=("this record alone: (e) built the head outside "
+                                             "the entry point" if not entry_head else
+                                             "this record; families_launches has (a)'s"),
+                   **head_in_turns(f"{label} (e)", hold, head, in_turns))
+        del hold, head
+        torch.cuda.empty_cache()
+
+    # (c) the float32 prefill handoff and (d) every block of 16 decode steps
+    # and the logits, bfloat16 against float32 of the same weights: on the
+    # model of (a) where its float32 twin fits, else on a bfloat16 draw of
+    # its first F32_LAYERS layers at full width (the same seed draws the
+    # same embedding and first layers); the handoff on the weights upcast
+    torch.cuda.reset_peak_memory_stats()
+    if arch in F32_LAYERS:
+        model = build_model(dataclasses.replace(
+            cfg, num_layers=min(F32_LAYERS[arch], cfg.num_layers), moe_capacity_factor=8.0),
+            device=dev, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    rec.update(bf16_against_f32(model, dev, label))
+    rec["bf16_block_rel_err"].update(held)
+    del model
     torch.cuda.empty_cache()
 
-    # (e) the coded head of (a) at this arch's head, each launch against its
-    # plain version on the same tensors
-    hold = hold_coded_head(f"{label} (e)", head, dev, compare)
-    rec.update(head_hold_err=hold["head_err"], head_kernel_vs_plain=hold["errs"])
-    del hold, head
-    torch.cuda.empty_cache()
     launches = {"coded_matvec": designs["stream"], "mds_encode": counts["mds_encode"],
                 "mds_decode": counts["mds_decode"], "lstm_cell": counts["lstm_cell"],
                 "coded_matvec (multi design, lm_head)": designs["multi"]}
     return launches, rec
 
 
-def families_phase(dev, compare, reduced: bool = False) -> tuple:
-    """Phase 8: ``repro_torch.launch.serve`` on phi3.5-moe (full width),
-    zamba2-1.2b and xlstm-125m (whole) on the card; ``compare`` holds a
-    kernel's output against its plain version, ``reduced`` runs the
-    reduced configs, as the CPU test does.  Returns the launches of the
-    three entry points' runs by record name, and the phase's record by
-    arch."""
+def families_phase(dev, compare, in_turns, reduced: bool = False) -> tuple:
+    """Phase 8: ``repro_torch.launch.serve`` on the FAMILY_ARCHS on the
+    card; ``compare`` holds a kernel's output against its plain version,
+    ``in_turns`` times versions of one function in turns, ``reduced`` runs
+    the reduced configs, as the CPU test does.  Returns the launches of the
+    entry points' runs by record name, and the phase's record by arch."""
     launches, records = {}, {}
     for arch in FAMILY_ARCHS:
         t0 = time.perf_counter()
-        counts, records[arch] = serve_family(arch, dev, compare, reduced)
+        counts, records[arch] = serve_family(arch, dev, compare, in_turns, reduced)
         records[arch]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 8 {arch}: {records[arch]['phase_s']:.1f} s", flush=True)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     return launches, records
@@ -2380,7 +2653,7 @@ def encdec_decode(model, frames, tokens, steps: int, label: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        logits, caches = model.prefill(frames, tokens, max_seq=s + steps + PROFILED_STEPS)
+        logits, caches = model.prefill(frames, tokens, max_seq=s + steps + PROFILED_STEPS + 1)
         end.record()
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
@@ -2405,7 +2678,7 @@ def encdec_decode(model, frames, tokens, steps: int, label: str) -> dict:
         raise RuntimeError(f"{label}: after a prefill of {tuple(frames.shape[:2])} frames and "
                            f"{s} tokens, {steps} decode steps gave logits that are not finite "
                            "or tokens outside the vocabulary")
-    pos = iter(range(s + steps, s + steps + PROFILED_STEPS))
+    pos = iter(range(s + steps, s + steps + PROFILED_STEPS + 1))
     busy = device_kernel_ms(lambda: model.decode_step(cur, caches, next(pos)), PROFILED_STEPS)
     return dict(prefill_s=prefill_s, encoder_ms=start.elapsed_time(marks["encoded"]),
                 decoder_ms=marks["encoded"].elapsed_time(end),
@@ -2465,7 +2738,6 @@ def encdec_phase(dev, compare, in_turns, reduced: bool = False) -> tuple:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import coded_matvec as cmv
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import build_model
     from repro_torch.models.params import param_count, tree_bytes
@@ -2581,26 +2853,10 @@ def encdec_phase(dev, compare, in_turns, reduced: bool = False) -> tuple:
     # (e) the coded lm_head at the 256k vocabulary, each launch against its
     # plain version, then the multi design in turns against x @ head
     hold = hold_coded_head(f"{label} (e)", head, dev, compare)
-    view, xt, ids, rpc, nb, x = (hold[k] for k in ("view", "xt", "ids", "rpc", "nb", "x"))
-    d = head.shape[0]
-    versions = {"multi": lambda: cmv.coded_matvec_multi(view, xt, ids, rpc),
-                "x @ head (dense)": lambda: x @ head,
-                "plain": lambda: cmv.coded_matvec_plain(view, xt, ids, rpc)}
-    names = list(versions)
-    times = in_turns(f"coded_matvec multi, {cfg.name} lm_head", versions, names + names[::-1])
-    best = {name: min(t["device_ms"]) for name, t in times.items()}
-    b_ms, b_by = bound_ms(4 * (nb * rpc * d + d * 2 + nb + nb * rpc * 2), 2 * nb * rpc * d * 2)
     rec.update(head_hold_err=hold["head_err"], head_kernel_vs_plain=hold["errs"],
-               head_launches=hold["counts"], head_multi_ms=best["multi"],
-               head_dense_ms=best["x @ head (dense)"], head_plain_ms=best["plain"],
-               head_bound_ms=b_ms, head_bound_by=b_by,
-               head_shape=f"nb = {nb} blocks of {rpc} rows, d = {d}, float32, B = 2")
-    print(f"{label} (e): coded_matvec multi at the lm_head, {rec['head_shape']}: best of two "
-          f"{best['multi']:.4f} ms against a bound of {b_ms:.4f} ({b_by}, "
-          f"{b_ms / best['multi']:.1%}); x @ head {best['x @ head (dense)']:.4f}, plain "
-          f"{best['plain']:.4f}", flush=True)
+               head_launches=hold["counts"], **head_in_turns(f"{label} (e)", hold, head, in_turns))
     counts = hold["counts"]
-    del hold, head, view, xt
+    del hold, head
     torch.cuda.empty_cache()
     return {"coded_matvec": 0, "mds_encode": counts["mds_encode"],
             "mds_decode": counts["mds_decode"], "lstm_cell": counts["lstm_cell"],
@@ -2629,46 +2885,59 @@ class Tee:
 
 class TrainProbe:
     """Records what ``launch.train.main`` ran: ``train``'s metrics (the
-    module's own ``train`` wrapped by attribute) and the host's clock at
-    each ``CodedDPStep.step`` entry and at ``train``'s return, the card
-    synchronised first, so that the interval between two entries is one
-    whole step (the coded gradients, the update, the log line and any
-    checkpoint), and the dead groups each step was given."""
+    module's own ``train`` wrapped by attribute), the host's clock at each
+    ``CodedDPStep.step`` entry and at the last ``save_checkpoint`` call's
+    entry (``train``'s final checkpoint), the card synchronised first, so
+    that the interval from a step's entry to the next mark is one whole
+    step (the coded gradients, the update, the log line and any checkpoint
+    on the way, but not the final one), and the dead groups each step was
+    given."""
 
     def __init__(self, dev):
         import repro_torch.launch.train as launch_train
+        from repro_torch.runtime import train_loop
         from repro_torch.runtime.train_loop import CodedDPStep
 
-        self.dev, self.metrics, self.entries, self.dead = dev, [], [], []
-        self._module, self._cls = launch_train, CodedDPStep
-        self._train, self._step = launch_train.train, CodedDPStep.step
+        self.dev, self.metrics, self.starts, self.saved, self.dead = dev, [], [], None, []
+        self._module, self._loop, self._cls = launch_train, train_loop, CodedDPStep
+        self._train, self._save, self._step = (launch_train.train, train_loop.save_checkpoint,
+                                               CodedDPStep.step)
 
     def __enter__(self):
         probe = self
 
         def train(*args, **kwargs):
             out = probe._train(*args, **kwargs)
-            probe.mark()
             probe.metrics.append(out)
             return out
 
+        def save(*args, **kwargs):
+            probe.saved = probe.mark()
+            return probe._save(*args, **kwargs)
+
         def step(self_, *args, **kwargs):
-            probe.mark()
+            probe.starts.append(probe.mark())
             probe.dead.append(sorted(kwargs.get("dead_groups") or ()))
             return probe._step(self_, *args, **kwargs)
 
-        self._module.train, self._cls.step = train, step
+        self._module.train, self._loop.save_checkpoint, self._cls.step = train, save, step
         return self
 
     def __exit__(self, *exc):
-        self._module.train, self._cls.step = self._train, self._step
+        self._module.train, self._loop.save_checkpoint, self._cls.step = (
+            self._train, self._save, self._step)
 
-    def mark(self):
+    def mark(self) -> float:
         import torch
 
         if self.dev.type == "cuda":
             torch.cuda.synchronize()
-        self.entries.append(time.perf_counter())
+        return time.perf_counter()
+
+    def step_s(self) -> list:
+        """Each step's seconds on the host's clock, the last one's up to the
+        final checkpoint."""
+        return [b - a for a, b in zip(self.starts, self.starts[1:] + [self.saved])]
 
 
 def run_train_main(argv: list, dev, label: str) -> tuple:
@@ -2689,8 +2958,7 @@ def run_train_main(argv: list, dev, label: str) -> tuple:
         rc = train_main(argv + ["--device", dev.type])
     expect(f"{label}: launch.train.main's exit code", rc, 0)
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
-    # every step's interval but the last, which holds the final checkpoint
-    step_s = [b - a for a, b in zip(probe.entries[:-1], probe.entries[1:-1])]
+    step_s = probe.step_s()
     metrics = {**probe.metrics[-1], "dead_groups": probe.dead}
     losses = metrics["losses"]
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -2825,7 +3093,7 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
     """Phase 10: train on the card through ``launch.train.main``: (a)
     xlstm-125m whole, coded DP over 8 groups with group 3 dead from step
     10, then a restart that resumes from its checkpoint; (b) zamba2-1.2b
-    whole, 3 coded AdamW steps, its peak memory beside the reckoning; (c)
+    whole, BIG_STEPS coded AdamW steps, its peak memory beside the reckoning; (c)
     the sLSTM scan's backward at full width against float64, timed and its
     graph's memory read at S = 64 and 2,048; (d) every kernel counter at 0
     over (a) and (b); (e) one microbatch of each under the profiler.
@@ -2879,7 +3147,7 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
             "restart_step_s": resumed_step_s, "run_s": first_s, "peak_gb": peak,
             "microbatches_per_step": 8 * 3}
 
-        # (b) zamba2-1.2b whole: 3 coded AdamW steps, 8 groups
+        # (b) zamba2-1.2b whole: BIG_STEPS coded AdamW steps, 8 groups
         meta = build_model(get_config(TRAIN_BIG) if not reduced
                            else get_config(TRAIN_BIG).reduced(), device="meta")
         reckoned = coded_training_reckoning(meta, 8)
@@ -4179,7 +4447,8 @@ def mesh_steps_phase(dev, reduced: bool = False) -> tuple:
 def dryrun_start(cells, out_dir: Path) -> list:
     """Phase 12 (a): one ``python -m repro_torch.launch.dryrun`` subprocess
     per cell, all started at once on the CPU (the card hidden from them),
-    each with its own output directory; returns (cell, process, start)."""
+    each with its own output directory; returns (cell, process, start),
+    and stops them when the script exits, however it exits."""
     started = []
     for arch, shape, mesh, accum in cells:
         out = out_dir / f"{arch}__{shape}__{mesh}"
@@ -4192,13 +4461,22 @@ def dryrun_start(cells, out_dir: Path) -> list:
                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True, cwd=ROOT)
         started.append(((arch, shape, mesh, accum), proc, time.perf_counter()))
+    atexit.register(dryrun_stop, started)
     return started
 
 
+def dryrun_stop(started) -> None:
+    """Kill each of ``dryrun_start``'s processes that still runs."""
+    for _, proc, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def dryrun_finish(started, out_dir: Path) -> list:
-    """Phase 12 (a): wait for each dry-run (DRYRUN_TIMEOUT from the phase's
-    start), print its record, and fail unless it ended ``ok`` with every key
-    the JAX package's record has."""
+    """Phase 12 (a): wait for each dry-run (DRYRUN_TIMEOUT from its start),
+    print its record, and fail unless it ended ``ok`` with every key the JAX
+    package's record has."""
     records = []
     try:
         for (arch, shape, mesh, accum), proc, t0 in started:
@@ -4215,12 +4493,13 @@ def dryrun_finish(started, out_dir: Path) -> list:
                       "peak_resident_bytes"}
             if rec.get("status") != "ok" or not keys <= set(rec) or set(rec["memory"]) != memory:
                 raise RuntimeError(f"phase 12 (a): {arch} x {shape} x {mesh}: {rec}")
-            rec["wall_s"] = time.perf_counter() - t0
+            rec["collected_s"] = time.perf_counter() - t0
             rec["grad_accum_override"] = accum
             rl = rec["roofline"]
             print(f"phase 12 (a): dry-run {arch} x {shape} x {mesh} ({rec['chips']} ranks of a "
-                  f"fake group{f', REPRO_GRAD_ACCUM={accum}' if accum else ''}): "
-                  f"{rec['wall_s']:.1f} s; per chip {rl['flops_per_chip']:.4e} FLOPs, "
+                  f"fake group{f', REPRO_GRAD_ACCUM={accum}' if accum else ''}): its step "
+                  f"{rec['compile_s']} s, collected {rec['collected_s']:.1f} s after its start; "
+                  f"per chip {rl['flops_per_chip']:.4e} FLOPs, "
                   f"{rl['bytes_per_chip']:.4e} dot bytes, {rl['coll_bytes_per_chip']:.4e} "
                   f"collective bytes {rl['coll_breakdown']}; t_compute {rl['t_compute']:.4e} s, "
                   f"t_memory {rl['t_memory']:.4e} s, t_collective {rl['t_collective']:.4e} s: "
@@ -4229,10 +4508,7 @@ def dryrun_finish(started, out_dir: Path) -> list:
                   flush=True)
             records.append(rec)
     finally:
-        for _, proc, _ in started:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        dryrun_stop(started)
     return records
 
 
@@ -4290,7 +4566,7 @@ def step_rooflines(dev, measured: dict, reduced: bool) -> dict:
     from repro_torch.optim.optimizer import make_optimizer
 
     out = {}
-    # phase 11 (b)'s cell: zamba2-1.2b whole, train_4k cut to 8 sequences
+    # phase 11 (b)'s cell: zamba2-1.2b whole, train_4k cut to STEP_TRAIN_BATCH sequences
     cfg = get_config(STEP_TRAIN_ARCH)
     shape = dataclasses.replace(shape_by_name("train_4k"), global_batch=STEP_TRAIN_BATCH)
     if reduced:
@@ -4427,28 +4703,26 @@ def cluster_demo_on_card(dev, compare) -> tuple:
                              "held_max_abs_err": errs, "held_max_abs_plain": scales}
 
 
-def roofline_phase(dev, compare, measured: dict, reduced: bool = False) -> tuple:
-    """Phase 12: (a) the dry-run's cells in subprocesses, started first and
-    collected last, (b) the roofline of phase 11's steps on the card, (c)
-    the cluster demo on the card with its kernels held.  ``measured``:
-    phase 11's record.  Returns (the demo's launches by record name, the
-    phase's record)."""
-    import tempfile
-
+def roofline_phase(dev, compare, measured: dict, dryruns: tuple,
+                   reduced: bool = False) -> tuple:
+    """Phase 12: (b) the roofline of phase 11's steps on the card, (c) the
+    cluster demo on the card with its kernels held, then (a) the dry-run's
+    cells collected: ``dryruns`` is ``dryrun_start``'s processes and their
+    output directory.  ``measured``: phase 11's record.  Returns (the
+    demo's launches by record name, the phase's record)."""
+    started, out_dir = dryruns
     record = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
-        started = dryrun_start(DRYRUN_CELLS_REDUCED if reduced else DRYRUN_CELLS, Path(tmp))
-        try:
-            t0 = time.perf_counter()
-            record["steps"] = step_rooflines(dev, measured, reduced)
-            record["steps_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            counts, designs, record["demo"] = cluster_demo_on_card(dev, compare)
-            record["demo_s"] = time.perf_counter() - t0
-        finally:
-            t0 = time.perf_counter()
-            record["dryrun"] = dryrun_finish(started, Path(tmp))
-            record["dryrun_wait_s"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        record["steps"] = step_rooflines(dev, measured, reduced)
+        record["steps_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        counts, designs, record["demo"] = cluster_demo_on_card(dev, compare)
+        record["demo_s"] = time.perf_counter() - t0
+    finally:
+        t0 = time.perf_counter()
+        record["dryrun"] = dryrun_finish(started, out_dir)
+        record["dryrun_wait_s"] = time.perf_counter() - t0
     launches = dict(counts)
     launches["coded_matvec (multi design)"] = designs["coded_matvec"]["multi"]
     return launches, record
@@ -4985,9 +5259,9 @@ def main() -> int:
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["serve_launches"] = serve_counts.get(rec["name"], 0)
 
-    # -- 8. serving the MoE, hybrid and xLSTM decoders -------------------------
+    # -- 8. serving the other decoder families ---------------------------------
     t0 = time.perf_counter()
-    family_counts, families = families_phase(dev, compare)
+    family_counts, families = families_phase(dev, compare, in_turns)
     print(f"families phase: {time.perf_counter() - t0:.1f} s", flush=True)
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["families_launches"] = family_counts.get(rec["name"], 0)
@@ -4999,6 +5273,11 @@ def main() -> int:
     print(f"encdec phase: {encdec['phase_s']:.1f} s", flush=True)
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["encdec_launches"] = encdec_counts.get(rec["name"], 0)
+
+    # -- 12 (a), started here: the dry-run's cells on the host's cores, the
+    # card hidden from them, beside phases 10 and 11; collected in 12
+    dryrun_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    dryruns = (dryrun_start(DRYRUN_CELLS, Path(dryrun_dir.name)), Path(dryrun_dir.name))
 
     # -- 10. training on the card ----------------------------------------------
     t0 = time.perf_counter()
@@ -5018,7 +5297,8 @@ def main() -> int:
 
     # -- 12. the dry-run, the roofline and the cluster demo --------------------
     t0 = time.perf_counter()
-    demo_counts, rooflined = roofline_phase(dev, compare, meshed)
+    demo_counts, rooflined = roofline_phase(dev, compare, meshed, dryruns)
+    dryrun_dir.cleanup()
     rooflined["phase_s"] = time.perf_counter() - t0
     print(f"dry-run, roofline and demo phase: {rooflined['phase_s']:.1f} s", flush=True)
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:

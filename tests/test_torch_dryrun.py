@@ -56,7 +56,8 @@ def test_dryrun_cell_ends_ok_and_renders(arch, shape, tmp_path):
 
 
 PHASE_TWELVE = textwrap.dedent("""
-    import json, sys
+    import json, sys, tempfile
+    from pathlib import Path
     import torch
     sys.path.insert(0, sys.argv[1])
     import chip_smoke
@@ -67,8 +68,10 @@ PHASE_TWELVE = textwrap.dedent("""
 
     if __name__ == "__main__":
         measured = {"train_step": {"step_s": [1.0, 2.0]}, "serve_steps": {"step_ms": [10.0]}}
-        launches, record = chip_smoke.roofline_phase(torch.device("cpu"), compare, measured,
-                                                     reduced=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            started = chip_smoke.dryrun_start(chip_smoke.DRYRUN_CELLS_REDUCED, Path(tmp))
+            launches, record = chip_smoke.roofline_phase(torch.device("cpu"), compare, measured,
+                                                         (started, Path(tmp)), reduced=True)
         print(json.dumps({"launches": launches, "record": record}))
 """)
 

@@ -63,8 +63,8 @@ def test_chip_smoke_phase_ten_on_the_cpu(monkeypatch, capsys):
     steps, more, _, _ = smoke.TRAIN_STEPS_REDUCED
     xl = record["xlstm"]
     assert len(xl["losses"]) == steps and len(xl["restart_losses"]) == more - steps
-    assert xl["loss_improved"] and len(xl["step_s"]) == steps - 1
-    assert len(record["zamba2"]["losses"]) == smoke.BIG_STEPS
+    assert xl["loss_improved"] and len(xl["step_s"]) == steps   # each up to the final checkpoint
+    assert len(record["zamba2"]["losses"]) == len(record["zamba2"]["step_s"]) == smoke.BIG_STEPS
     assert set(record["slstm_backward"]["rel_err"]) == {"dr", "db", "dxw"}
     assert sorted(record["slstm_backward"]["runs"]) == [smoke.SLSTM_BS[1], smoke.SLSTM_LONG_S[True]]
     assert record["zamba2"]["microbatch"] == {"kernel_ms": None}
