@@ -230,19 +230,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        version), then the multi design (nb = 32 blocks of 8,008 rows) in
        turns against ``x @ head`` and the plain version, beside its bound.
 
-10. training on the card through ``repro_torch.launch.train.main``, the
-    kernels' launch counters zeroed before (a) and read after (b):
+10. training on the card through ``repro_torch.launch.train`` (``main``,
+    and ``run`` on a model built at a cut depth), the kernels' launch
+    counters zeroed before (a) and read after (f):
     (a) xlstm-125m whole (12 layers, 9 mLSTM and 3 sLSTM, d_model 768,
         vocab 50,304, random from seed 0) with ``examples/train_lm.py``'s
         flags without ``--reduced`` but the sequence: coded DP over 8 groups
         tolerating 2, group 3 killed at step 10, batch 16, seq 32 (the
-        example's 48 cut for the script's time), 15 steps into a temporary
+        example's 48 cut for the script's time), 12 steps into a temporary
         checkpoint directory (24 microbatches a step), group 3 dead in
-        exactly the 5 steps 10-14; every loss finite and
-        ``loss_improved=True`` printed; then ``main`` again with 16 steps,
-        which must resume from the step-14 checkpoint and run the step
-        left; each step's time (the card synchronised at its start) and
-        the peak memory;
+        exactly steps 10 and 11 (the loop's 5-step window, cut by the run's
+        end; the CPU rehearsal's 15 steps hold all of it); every loss
+        finite and ``loss_improved=True`` printed; then ``main`` again with
+        13 steps, which must resume from the step-11 checkpoint and run the
+        step left; each step's time (the card synchronised at its start)
+        and the peak memory;
     (b) zamba2-1.2b whole (38 Mamba-2 layers and the shared attention
         block, 1.17 B parameters) for 1 coded AdamW step over 8 groups,
         its peak memory beside the reckoning of the JAX package's
@@ -254,11 +256,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         each gradient's largest value; at S = 64 and 1,024, forward and
         backward between CUDA events and the memory the backward's graph
         held, beside the outputs' bytes;
-    (d) every kernel counter reads 0 across (a) and (b): the training path,
+    (d) every kernel counter reads 0 across (a)-(f): the training path,
         like the JAX package's, reaches none of the four kernels;
     (e) one coded microbatch of each (B = 2, S = 32: ``loss_fn`` and the
         gradient of every parameter) under ``torch.profiler``: its kernels'
-        time, launches and the device's idle share.
+        time, launches and the device's idle share;
+    (f) the three families (a) and (b) do not train, at full width in
+        bfloat16 from seed 0, each through ``launch.train.run`` for 1 coded
+        AdamW step: seamless-m4t-large-v2 whole (24 encoder and 24 decoder
+        layers, 1.633 B parameters) over 8 groups tolerating 2, 16 x 32
+        tokens and 16 frames a sequence; phi3.5-moe-42b-a6.6b at 1 of 32
+        layers (1.565 B) over 4 groups tolerating 1, 8 x 256 tokens; and
+        gemma3-27b at 1 of 62 layers (a local layer, 1.843 B) over 4 groups
+        tolerating 1, 4 x 2,048 tokens, past its 1,024-token window.  Before
+        each build its reckoning in place (the parameters, AdamW's moments,
+        the coded trees and a microbatch's gradients) must leave 8 GiB of
+        the card's free memory (seamless falls back to 4 groups tolerating
+        1; nothing is cut); then its step's time, finite losses, its peak
+        memory beside the reckoning in all and in place, its build time,
+        one coded microbatch of the run's first batch under the profiler,
+        and the float64 witness on its first sequence with the weights the
+        run started from: the loss and every gradient in float32 on them
+        upcast, against the same in float64 under ``float64_witness`` (no
+        float32 tensor left), the loss and gradient norm within 1e-4 and
+        every leaf within 2e-3 of its largest witness value (phi: the tokens
+        routed otherwise in the two runs printed).
 
 11. the worker mesh and ``launch/``'s step builders at full width:
     (a) the main path's (n, k) = (12, 10), D = 600,000, d = 2,048 float32,
@@ -311,7 +333,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         difference, shown); each rank's peak allocation beside the
         dry-run's reckoning of the cells on a ``fake`` group of 4;
     (e) ``build_train_step`` on the same mesh of 4 spawned gloo ranks:
-        zamba2-1.2b whole in float32 (drawn as (d) draws it), ``train_4k``'s
+        zamba2-1.2b at full width and 19 of its 38 layers in float32
+        (drawn as (d) draws it), ``train_4k``'s
         4,096 tokens cut to 1,024 and its batch of 256 to 4,
         ``grad_accum_for``'s microbatches, SGDM, one step, the weights placed
         by ``shard_model``, the optimizer's state by
@@ -497,8 +520,10 @@ ENCDEC_CONTEXT = 2_048          # frames and prompt tokens of (b)
 # SLSTM_LONG_S (the reduced config's, the CPU test's, shorter)
 TRAIN_ARCH = "xlstm-125m"
 TRAIN_BIG = "zamba2-1.2b"
-# (15 steps hold the loop's whole 5-step dead window, 10-14, before the
-# checkpoint; a restart to 16 resumes 1; 20 and 24 took the phase 500 s of
+# (15 steps held the loop's whole 5-step dead window, 10-14, before the
+# checkpoint; 12 since (f) came, for the script's time (steps of 10.2-13.8
+# s), the window cut to 10-11, the CPU test's 15 holding all of it; a
+# restart to one step more resumes 1; 20 and 24 took the phase 500 s of
 # a 1,200 s script on a slow host.  Seq 32, not the example's 48, since
 # phase 11 (d)'s MoE and (e) came: an xlstm step 7.6 s, not 12.4, on one
 # H100 (NVIDIA H100 80GB HBM3, 700 W); at 24 the 15 steps did not lower
@@ -506,7 +531,7 @@ TRAIN_BIG = "zamba2-1.2b"
 # script's time: the sLSTM's long scan is 1,024, not 2,048; since phase 8
 # serves seven archs: the restart resumes 1 step, not 3, and zamba2 takes
 # BIG_STEPS = 1, not 3, each timed up to the final checkpoint)
-TRAIN_STEPS = (15, 16, 16, 32)          # steps, steps after the restart, batch, seq
+TRAIN_STEPS = (12, 13, 16, 32)          # steps, steps after the restart, batch, seq
 TRAIN_STEPS_REDUCED = (15, 18, 8, 16)   # the CPU test's
 DEAD_STEPS = 5                          # train_loop.train's window for a killed group
 BIG_STEPS = 1
@@ -514,6 +539,37 @@ SLSTM_BS = (2, 64)
 SLSTM_LONG_S = {False: 1_024, True: 256}
 SLSTM_BWD_REL = 1e-4                    # of each gradient's largest value
 PROFILED_MICROBATCHES = 2
+# (f) the three families phase 10 had not trained, at full width through
+# launch.train.run, BIG_STEPS coded AdamW steps each: seamless-m4t-large-v2
+# whole with examples/train_lm.py's flags (16 frames a sequence); phi3.5-moe
+# and gemma3-27b at TRAIN_LAYERS, the most that fit one card by the in-place
+# reckoning (phi 1.565 B parameters at one layer, 43.8 GB at 4 groups, two
+# layers 2.865 B do not fit; gemma3 1.843 B, 51.6 GB, its first global layer
+# is the sixth and six layers, 4.01 B, do not fit), gemma3's 2,048 tokens past
+# its 1,024-token window.  Seamless at 8 groups reckons 71.9 GB in place; where
+# that does not fit it takes TRAIN_FALLBACK_GROUPS (4 groups tolerating 1).
+# Then the loss and every gradient on one sequence of the first batch in
+# float32, with the weights the run started from, held to float64
+# (float64_witness) at MESH_TRAIN_TOL and, leaf by leaf, at
+# MESH_TRAIN_UPDATE_TOL of the witness's largest value.  On one H100
+# (NVIDIA H100 80GB HBM3, 700 W) (f) took 113.9 s alone: seamless 67.0
+# (a step 25.4 s, its 16.3 GB final checkpoint about 14), phi 20.4, gemma3
+# 22.6; peaks 74.06, 47.23 and 62.94 GB
+TRAIN_FAMILIES = ("seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b", "gemma3-27b")
+TRAIN_LAYERS = {"phi3.5-moe-42b-a6.6b": 1, "gemma3-27b": 1}
+TRAIN_FLAGS = {
+    "seamless-m4t-large-v2": ("--arch", "seamless-m4t-large-v2", "--coded-dp", "--groups", "8",
+                              "--tolerate", "2", "--batch", "16", "--seq", "32"),
+    "phi3.5-moe-42b-a6.6b": ("--arch", "phi3.5-moe-42b-a6.6b", "--coded-dp", "--groups", "4",
+                             "--tolerate", "1", "--batch", "8", "--seq", "256"),
+    "gemma3-27b": ("--arch", "gemma3-27b", "--coded-dp", "--groups", "4", "--tolerate", "1",
+                   "--batch", "4", "--seq", "2048"),
+}
+# the CPU test's: the reduced configs, gemma3's 32 tokens past the reduced window of 16
+TRAIN_FLAGS_REDUCED = {
+    arch: flags[:-4] + ("--batch", flags[-3], "--seq", "32") + ("--reduced",)
+    for arch, flags in TRAIN_FLAGS.items()}
+TRAIN_FALLBACK_GROUPS = {"seamless-m4t-large-v2": (4, 1)}
 
 # phase 11, the worker mesh and the step builders: (a) the main path's
 # (n, k), D, d and C over N ranks that share the card over gloo, MESH_ITERS
@@ -562,8 +618,9 @@ MESH_SERVE_DTYPES = ("float32", "bfloat16")
 MESH_SERVE_SHAPE, MESH_SERVE_TIMEOUT = (2, 2), 600
 MESH_SERVE_TRAFFIC = (4, 512, 4)             # B, P, S (8 steps before (e)'s witness)
 MESH_SERVE_TRAFFIC_REDUCED = (4, 16, 4)      # the CPU test's
-# (e) build_train_step on the same mesh of spawned ranks: zamba2-1.2b
-# whole, drawn as (d) draws it (seed 0, bfloat16, upcast to float32),
+# (e) build_train_step on the same mesh of spawned ranks: zamba2-1.2b at
+# full width and MESH_TRAIN_LAYERS of its 38 layers, drawn as (d) draws it
+# (seed 0, bfloat16, upcast to float32),
 # train_4k's sequence cut to S and its global batch to B, grad_accum_for's
 # microbatches, SGDM at MESH_TRAIN_LR (its step is lr times the gradient,
 # where AdamW's first step, g / |g|, turns a float32 reordering of a
@@ -573,9 +630,9 @@ MESH_SERVE_TRAFFIC_REDUCED = (4, 16, 4)      # the CPU test's
 # witness's (tests/test_torch_mesh_train.py's TOL), every parameter within
 # MESH_TRAIN_UPDATE_TOL of the witness's largest update of it, once the
 # half float32 ulp of its largest value is allowed for.  The unsharded
-# float32 step lies 6.1e-4 to 1.02e-3 of the update from the witness at 1,
-# 2 or 4 microbatches (examples/torch_train_precision.py; NVIDIA H100 80GB
-# HBM3, 700 W): float32 alone does not reach 1e-4 of a gradient summed over
+# float32 step of the whole model lies 6.1e-4 to 1.02e-3 of the update from
+# the witness at 1, 2 or 4 microbatches (examples/torch_train_precision.py;
+# NVIDIA H100 80GB HBM3, 700 W): float32 alone does not reach 1e-4 of a gradient summed over
 # 4,096 tokens, on the leaves that start at zero (Mamba-2's a_log and
 # dt_bias, -lr·g after the step) as on the others
 MESH_TRAIN_ARCH, MESH_TRAIN_LR, MESH_TRAIN_TOL = "zamba2-1.2b", 1e-2, 1e-4
@@ -583,6 +640,10 @@ MESH_TRAIN_UPDATE_TOL = 2e-3                 # twice the unsharded float32 step'
 MESH_TRAIN_TRAFFIC = (4, 1_024)              # B, S
 MESH_TRAIN_TRAFFIC_REDUCED = (4, 16)         # the CPU test's
 MESH_TRAIN_TIMEOUT = 600
+# 19 of 38 layers (3 applications of the shared attention block) since
+# phase 10 (f) came, for the script's time: whole, (e) took 162 s
+# of a 1,145.6 s run on a slow host (NVIDIA H100 80GB HBM3, 700 W)
+MESH_TRAIN_LAYERS = 19
 
 # phase 12, the dry-run, the roofline and the cluster demo: (a) cells of
 # python -m repro_torch.launch.dryrun, (arch, shape, mesh, REPRO_GRAD_ACCUM
@@ -2940,14 +3001,15 @@ class TrainProbe:
         return [b - a for a, b in zip(self.starts, self.starts[1:] + [self.saved])]
 
 
-def run_train_main(argv: list, dev, label: str) -> tuple:
-    """``launch.train.main(argv)`` on ``dev``: (its metrics, its step times,
-    what it printed, its peak memory in GB)."""
+def run_train_main(argv: list, dev, label: str, model=None) -> tuple:
+    """``launch.train.main(argv)`` on ``dev``, or, where ``model`` is given,
+    ``launch.train.run(parse_args(argv), model)``: (its metrics, its step
+    times, what it printed, its peak memory in GB)."""
     import contextlib
 
     import torch
 
-    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch import train as launch_train
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2955,8 +3017,10 @@ def run_train_main(argv: list, dev, label: str) -> tuple:
         torch.cuda.reset_peak_memory_stats()
     tee = Tee(sys.stdout)
     with TrainProbe(dev) as probe, contextlib.redirect_stdout(tee):
-        rc = train_main(argv + ["--device", dev.type])
-    expect(f"{label}: launch.train.main's exit code", rc, 0)
+        argv = argv + ["--device", dev.type]
+        rc = (launch_train.main(argv) if model is None
+              else launch_train.run(launch_train.parse_args(argv), model))
+    expect(f"{label}: launch.train's exit code", rc, 0)
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
     step_s = probe.step_s()
     metrics = {**probe.metrics[-1], "dead_groups": probe.dead}
@@ -2973,12 +3037,17 @@ def coded_training_reckoning(model, n_groups: int) -> dict:
     """The peak of coded AdamW training of ``model`` (GB) as the JAX
     package's step holds it: the parameters, AdamW's two float32 moments,
     ``n_groups`` float32 coded trees, the decoded tree and its /n copy, one
-    microbatch's gradients (the activations left out)."""
+    microbatch's gradients (the activations left out); and ``in_place``,
+    the same less the decoded tree and its copy, which the port's
+    ``CodedDPStep.step`` never allocates (it decodes into the coded
+    trees)."""
     n = sum(p.numel() for p in model.parameters())
     size = sum(p.numel() * p.element_size() for p in model.parameters())
     parts = {"parameters": size, "adamw_state": 8 * n, "coded_trees": n_groups * 4 * n,
              "decoded_and_scaled": 2 * 4 * n, "microbatch_grads": size}
-    return {k: v / 1e9 for k, v in parts.items()} | {"total": sum(parts.values()) / 1e9}
+    total = sum(parts.values())
+    return {k: v / 1e9 for k, v in parts.items()} | {
+        "total": total / 1e9, "in_place": (total - parts["decoded_and_scaled"]) / 1e9}
 
 
 def slstm_backward_at_width(dev, compare, reduced: bool) -> dict:
@@ -3054,21 +3123,21 @@ def slstm_backward_at_width(dev, compare, reduced: bool) -> dict:
     return {"rel_err": errs, "runs": runs, "b": bsz, "d": cfg.d_model}
 
 
-def microbatch_profile(arch: str, dev, seq: int, reduced: bool) -> dict:
-    """(e) One coded microbatch of ``arch`` as ``CodedDPStep`` runs it
-    (about 2 sequences: ``loss_fn`` and ``torch.autograd.grad`` over every
-    parameter), random from seed 0, under ``torch.profiler``: its kernels'
-    device time, launches and the device's idle share of the host's time."""
+def on_device(batch: dict, dev, rows: int) -> dict:
+    """The first ``rows`` sequences of a ``TokenPipeline`` batch on ``dev``,
+    as ``CodedDPStep`` moves a microbatch."""
+    from repro_torch.runtime.train_loop import _to_device
+
+    return _to_device({k: v[:rows] for k, v in batch.items()}, dev)
+
+
+def microbatch_profile(label: str, model, mb: dict) -> dict:
+    """One coded microbatch ``mb`` of ``model`` as ``CodedDPStep`` runs it
+    (``loss_fn`` and ``torch.autograd.grad`` over every parameter) under
+    ``torch.profiler``: its kernels' device time, launches and the device's
+    idle share of the host's time."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.models import build_model
-
-    cfg = get_config(arch).reduced() if reduced else get_config(arch)
-    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    mb = {k: torch.from_numpy(v).to(dev).long() for k, v in TokenPipeline(
-        vocab_size=cfg.vocab_size, batch=2, seq_len=seq, seed=0).next_batch().items()}
     params = list(model.parameters())
 
     def step():
@@ -3076,35 +3145,246 @@ def microbatch_profile(arch: str, dev, seq: int, reduced: bool) -> dict:
 
     step()
     got = device_kernel_ms(step, PROFILED_MICROBATCHES)
-    del model, params
+    del params
     if got is None:
-        print(f"phase 10 (e) {arch}: the profiler recorded no device time", flush=True)
+        print(f"{label}: the profiler recorded no device time", flush=True)
         return {"kernel_ms": None}
     busy, host, launches, top = got
     rec = {"kernel_ms": busy, "host_ms": host, "launches": launches,
            "idle_share": 1 - busy / host, "top": top}
-    print(f"phase 10 (e) {arch}: a microbatch (B = 2, S = {seq}) {host:.1f} ms on the host's "
-          f"clock, {busy:.2f} ms of kernels in {launches:.0f} launches, idle "
-          f"{100 * rec['idle_share']:.1f} %; top {top}", flush=True)
+    print(f"{label}: a microbatch (B = {mb['tokens'].shape[0]}, S = {mb['tokens'].shape[1]}) "
+          f"{host:.1f} ms on the host's clock, {busy:.2f} ms of kernels in {launches:.0f} "
+          f"launches, idle {100 * rec['idle_share']:.1f} %; top {top}", flush=True)
+    return rec
+
+
+def family_config(arch: str, reduced: bool):
+    """(f)'s config of ``arch``: full width (or the reduced config), at
+    TRAIN_LAYERS' depth where it is cut there."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    if arch in TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS[arch])
+    return cfg
+
+
+def slabs(t, size: int = 1 << 26) -> tuple:
+    """``t`` flattened, in views of at most ``size`` elements: a float64
+    temporary of gemma3-27b's 1.41 B-entry embedding gradient would take
+    11.3 GB."""
+    return t.reshape(-1).split(size)
+
+
+def training_witness(model, mb: dict, label: str) -> dict:
+    """(f) The loss and every gradient of ``model.loss_fn(mb)`` with the
+    weights upcast in place to float32, then the same in float64 under
+    :func:`float64_witness` (which fails if an op still returned float32),
+    the float32 gradients kept on the host where the card could not hold
+    both runs'.  Held: the loss and the gradient norm within MESH_TRAIN_TOL
+    of the witness's, every leaf within MESH_TRAIN_UPDATE_TOL of the
+    largest value of the witness's gradient of it.  For a MoE, the tokens
+    whose experts differ between the two runs (layer 0's forward) are
+    counted.  Leaves ``model`` in float64 for the caller to free; returns
+    the record."""
+    import dataclasses
+
+    import torch
+
+    dev = mb["tokens"].device
+    cuda = dev.type == "cuda"
+    moe = model.cfg.family == "moe"
+    model.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    names = [n for n, _ in model.named_parameters()]
+    runs = {}
+    for dtype in ("float32", "float64"):
+        witness = float64_witness() if dtype == "float64" else None
+        if witness:
+            model.double()
+        else:
+            model.float()
+        routed = RoutedExperts() if moe else None
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # a float input (seamless's frames) is made float64 outside the mode,
+        # as the weights are: a .to() of its own dtype dispatches nothing
+        batch = {k: v.double() if witness and v.is_floating_point() else v
+                 for k, v in mb.items()}
+        with witness or contextlib.nullcontext(), routed or contextlib.nullcontext():
+            loss = model.loss_fn(batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if witness:
+            float32_ops = dict(witness.float32)
+            if float32_ops:
+                raise RuntimeError(f"{label}: the float64 witness still made float32 tensors: "
+                                   f"{float32_ops}")
+        if not witness and cuda:
+            size = sum(g.numel() * g.element_size() for g in grads)
+            if torch.cuda.mem_get_info(dev)[0] < 4 * size + FREE_AFTER_BUILD:
+                grads = [g.cpu() for g in grads]     # the float64 run's room
+        runs[dtype] = {"loss": float(loss.detach()), "grads": grads, "s": secs,
+                       "norm": math.sqrt(sum(float(torch.linalg.vector_norm(
+                           c, dtype=torch.float64) ** 2) for g in grads for c in slabs(g))),
+                       "experts": routed.experts[0] if routed else None}
+        del loss, grads
+    want, got = runs["float64"], runs["float32"]
+    rel = {}
+    for name, g32, g64 in zip(names, got["grads"], want["grads"]):
+        top = float(g64.abs().max())
+        diff = max(float((a.to(b.device, torch.float64) - b).abs().max())
+                   for a, b in zip(slabs(g32), slabs(g64)))
+        rel[name] = diff / top if top else (0.0 if diff == 0 else math.inf)
+    failures = [f"{key} {got[key]!r} against the witness's {want[key]!r}"
+                for key in ("loss", "norm")
+                if not (math.isfinite(got[key])
+                        and abs(got[key] - want[key]) <= MESH_TRAIN_TOL * abs(want[key]))]
+    bad = {n: e for n, e in rel.items() if not e <= MESH_TRAIN_UPDATE_TOL}
+    worst = max(rel, key=rel.get)
+    rec = {"loss": got["loss"], "witness_loss": want["loss"], "grad_norm": got["norm"],
+           "witness_grad_norm": want["norm"], "tol": MESH_TRAIN_TOL,
+           "leaf_tol": MESH_TRAIN_UPDATE_TOL, "leaves": len(rel), "worst_leaf": worst,
+           "worst_leaf_rel_err": rel[worst], "float32_s": got["s"], "float64_s": want["s"],
+           "float32_ops": float32_ops, "tokens": mb["tokens"].numel()}
+    if moe:
+        rec["routed_otherwise"] = int((got["experts"].to(dev) != want["experts"]).any(-1).sum())
+    runs.clear()
+    print(f"{label}: the float64 witness on one sequence of the first batch "
+          f"({mb['tokens'].shape[1]} tokens): loss {rec['loss']:.9f} against "
+          f"{rec['witness_loss']:.9f}, gradient norm {rec['grad_norm']:.9f} against "
+          f"{rec['witness_grad_norm']:.9f} (limit {MESH_TRAIN_TOL} of the witness's); the "
+          f"worst of {len(rel)} leaves {worst} at {rel[worst]:.3e} of its largest witness "
+          f"value (limit {MESH_TRAIN_UPDATE_TOL}); float32 {got['s']:.3f} s, float64 "
+          f"{want['s']:.3f} s; no float32 tensor under the witness"
+          + (f"; tokens routed otherwise in float32 than in float64: "
+             f"{rec['routed_otherwise']} of {rec['tokens']}" if moe else ""), flush=True)
+    if bad:
+        failures.append(f"{len(bad)} leaves past {MESH_TRAIN_UPDATE_TOL} of their largest "
+                        "witness value: " + ", ".join(
+                            f"{n} {e:.2e}" for n, e in sorted(bad.items(),
+                                                              key=lambda kv: -kv[1])[:8]))
+    if failures:
+        raise RuntimeError(f"{label}: " + "; ".join(failures))
+    return rec
+
+
+def train_family(arch: str, dev, tmp: str, reduced: bool) -> dict:
+    """(f) ``arch`` built at ``family_config``'s depth from seed 0, first
+    checked to fit (its in-place reckoning and FREE_AFTER_BUILD within the
+    card's free memory; seamless falls back to TRAIN_FALLBACK_GROUPS, the
+    others fail, none shrinks), trained for BIG_STEPS steps through
+    ``launch.train.run`` with TRAIN_FLAGS, then one coded microbatch of
+    the run's first batch under the profiler, and the float64 witness
+    (:func:`training_witness`) on that batch's first sequence with the
+    weights the run started from (drawn again from seed 0).  Returns the
+    record."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+
+    label = f"phase 10 (f) {arch}"
+    cuda = dev.type == "cuda"
+    t_start = time.perf_counter()
+    cfg = family_config(arch, reduced)
+    flags = list((TRAIN_FLAGS_REDUCED if reduced else TRAIN_FLAGS)[arch])
+    meta = build_model(cfg, device="meta")
+    n_params = sum(p.numel() for p in meta.parameters())
+    gc.collect()
+    if cuda:        # the allocator's cache of earlier phases is not free to the device
+        torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0] if cuda else math.inf
+    held = torch.cuda.memory_allocated(dev) / 1e9 if cuda else 0.0
+    for groups, tolerate in [(int(flags[flags.index("--groups") + 1]),
+                              int(flags[flags.index("--tolerate") + 1]))] + (
+                                  [TRAIN_FALLBACK_GROUPS[arch]]
+                                  if arch in TRAIN_FALLBACK_GROUPS else []):
+        reckoned = coded_training_reckoning(meta, groups)
+        if reckoned["in_place"] * 1e9 + FREE_AFTER_BUILD <= free:
+            break
+        print(f"{label}: {groups} groups reckon {reckoned['in_place']:.2f} GB in place, "
+              f"more than the card's {free / 1e9:.2f} GB free less "
+              f"{FREE_AFTER_BUILD / 2**30:.0f} GiB ({held:.2f} GB still allocated)", flush=True)
+    else:
+        raise RuntimeError(f"{label} does not fit the card at any of its groups")
+    flags[flags.index("--groups") + 1] = str(groups)
+    flags[flags.index("--tolerate") + 1] = str(tolerate)
+    del meta
+    layers = (f"{cfg.enc_layers} + {cfg.num_layers}" if cfg.is_encdec else str(cfg.num_layers))
+    print(f"{label}: {layers} layers, d_model {cfg.d_model}, {n_params:,} parameters, flags "
+          f"{' '.join(flags)}; reckoned {reckoned['total']:.2f} GB, in place "
+          f"{reckoned['in_place']:.2f} GB, the card's free memory "
+          f"{free / 1e9 if cuda else 0.0:.2f} GB ({held:.2f} GB still allocated)", flush=True)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    if cuda:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ckpt = os.path.join(tmp, arch)
+    argv = flags + ["--steps", str(BIG_STEPS), "--ckpt-dir", ckpt]
+    t0 = time.perf_counter()
+    metrics, step_s, _, peak = run_train_main(argv, dev, label, model=model)
+    run_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    expect(f"{label}: steps run", len(metrics["losses"]), BIG_STEPS)
+    print(f"{label}: peak memory {peak:.2f} GB; reckoned {reckoned['total']:.2f} GB, in place "
+          f"{reckoned['in_place']:.2f} GB (" + ", ".join(
+              f"{k} {v:.2f}" for k, v in reckoned.items() if k not in ("total", "in_place"))
+          + f"); build {build_s:.2f} s, run {run_s:.2f} s", flush=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    args = launch_train.parse_args(argv + ["--device", dev.type])
+    first = launch_train.make_pipeline(cfg, args).next_batch()
+    profile = microbatch_profile(label, model, on_device(first, dev, args.batch // groups))
+    # the witness on the weights the run's first batch met: drawn again
+    del model
+    gc.collect()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    witness = training_witness(model, on_device(first, dev, 1), label)
+    del model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    rec = {"arch": arch, "layers": cfg.num_layers, "enc_layers": cfg.enc_layers,
+           "d_model": cfg.d_model, "parameters": n_params, "flags": flags, "groups": groups,
+           "tolerate": tolerate, "steps": BIG_STEPS, "losses": metrics["losses"],
+           "step_s": step_s, "build_s": build_s, "run_s": run_s, "peak_gb": peak,
+           "free_gb": free / 1e9 if cuda else None, "reckoned_gb": reckoned,
+           "microbatch": profile, "witness": witness,
+           "phase_s": time.perf_counter() - t_start}
+    print(f"{label}: {rec['phase_s']:.1f} s", flush=True)
     return rec
 
 
 def train_phase(dev, compare, reduced: bool = False) -> tuple:
-    """Phase 10: train on the card through ``launch.train.main``: (a)
+    """Phase 10: train on the card through ``launch.train``: (a)
     xlstm-125m whole, coded DP over 8 groups with group 3 dead from step
     10, then a restart that resumes from its checkpoint; (b) zamba2-1.2b
     whole, BIG_STEPS coded AdamW steps, its peak memory beside the reckoning; (c)
     the sLSTM scan's backward at full width against float64, timed and its
-    graph's memory read at S = 64 and 2,048; (d) every kernel counter at 0
-    over (a) and (b); (e) one microbatch of each under the profiler.
+    graph's memory read at S = 64 and SLSTM_LONG_S; (d) every kernel
+    counter at 0 over (a)-(f); (e) one microbatch of each under the
+    profiler; (f) TRAIN_FAMILIES at full width (:func:`train_family`),
+    each through ``launch.train.run`` and held to a float64 witness.
     ``reduced`` runs the reduced configs and fewer steps, as the CPU test
-    does.  Returns the kernels' launches over (a) and (b) by
-    record name, and the phase's record."""
+    does.  Returns the kernels' launches over (a)-(f) by record name, and
+    the phase's record."""
+    import shutil
     import tempfile
 
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
@@ -3129,7 +3409,7 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
         expect("phase 10 (a): steps run", len(first["losses"]), steps)
         expect("phase 10 (a): the steps with group 3 dead",
                [i for i, d in enumerate(first["dead_groups"]) if d],
-               list(range(10, 10 + DEAD_STEPS)))
+               list(range(10, min(10 + DEAD_STEPS, steps))))
         expect("phase 10 (a): the dead group", {tuple(d) for d in first["dead_groups"] if d},
                {(3,)})
         resumed, resumed_step_s, _, _ = run_train_main(flags + ["--steps", str(more)], dev,
@@ -3158,27 +3438,41 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
              "--ckpt-dir", os.path.join(tmp, "zamba2")] + small, dev, "phase 10 (b) zamba2-1.2b")
         expect("phase 10 (b): steps run", len(big["losses"]), BIG_STEPS)
         print(f"phase 10 (b): zamba2-1.2b peak memory {big_peak:.2f} GB; reckoned "
-              f"{reckoned['total']:.2f} GB (" + ", ".join(
-                  f"{k} {v:.2f}" for k, v in reckoned.items() if k != "total") + ")",
-              flush=True)
+              f"{reckoned['total']:.2f} GB, in place {reckoned['in_place']:.2f} GB (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in reckoned.items() if k not in ("total", "in_place"))
+              + ")", flush=True)
+        shutil.rmtree(os.path.join(tmp, "zamba2"), ignore_errors=True)
         record["zamba2"] = {"arch": TRAIN_BIG, "steps": BIG_STEPS, "losses": big["losses"],
                             "step_s": big_step_s, "peak_gb": big_peak,
                             "reckoned_gb": reckoned}
-    launches = ops.launch_counts()
-    designs = ops.design_counts()
-    # (d) the training path reaches no kernel, as the JAX package's reaches
-    # no Pallas kernel: every counter reads 0 across (a) and (b)
-    expect("phase 10 (d): kernel launches while training", launches,
-           dict.fromkeys(launches, 0))
-    expect("phase 10 (d): designs launched while training", designs,
-           {k: dict.fromkeys(v, 0) for k, v in designs.items()})
-    print(f"phase 10 (d): launches over (a) and (b): {launches}", flush=True)
-    record["launches"] = launches
     # (c) the sLSTM scan's backward at full width
     record["slstm_backward"] = slstm_backward_at_width(dev, compare, reduced)
     # (e) where a step's time goes: one microbatch of each under the profiler
     for key, arch in (("xlstm", TRAIN_ARCH), ("zamba2", TRAIN_BIG)):
-        record[key]["microbatch"] = microbatch_profile(arch, dev, seq, reduced)
+        cfg = get_config(arch).reduced() if reduced else get_config(arch)
+        model = build_model(cfg, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+        mb = on_device(TokenPipeline(vocab_size=cfg.vocab_size, batch=2, seq_len=seq,
+                                     seed=0).next_batch(), dev, 2)
+        record[key]["microbatch"] = microbatch_profile(f"phase 10 (e) {arch}", model, mb)
+        del model, mb
+    # (f) the three families never trained on the card before, at full width
+    print(f"phase 10 (f): TRAIN_FAMILIES {TRAIN_FAMILIES}, TRAIN_LAYERS {TRAIN_LAYERS}, "
+          f"TRAIN_FLAGS {TRAIN_FLAGS_REDUCED if reduced else TRAIN_FLAGS}, BIG_STEPS "
+          f"{BIG_STEPS}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_families_") as tmp:
+        record["families"] = {arch: train_family(arch, dev, tmp, reduced)
+                              for arch in TRAIN_FAMILIES}
+    launches = ops.launch_counts()
+    designs = ops.design_counts()
+    # (d) the training path reaches no kernel, as the JAX package's reaches
+    # no Pallas kernel: every counter reads 0 across (a)-(f)
+    expect("phase 10 (d): kernel launches while training", launches,
+           dict.fromkeys(launches, 0))
+    expect("phase 10 (d): designs launched while training", designs,
+           {k: dict.fromkeys(v, 0) for k, v in designs.items()})
+    print(f"phase 10 (d): launches over (a)-(f): {launches}", flush=True)
+    record["launches"] = launches
     return launches, record
 
 
@@ -3582,10 +3876,11 @@ def mesh_serve_inputs(cfg, b: int, prompt: int, dev) -> dict:
     return out
 
 
-def mesh_config(arch: str, reduced: bool):
+def mesh_config(arch: str, reduced: bool, layers: int = 0):
     """Phase 11 (d)'s and (e)'s config of ``arch``: its reduced float32
-    smoke config when ``reduced``, else the whole config at
-    MESH_SERVE_LAYERS' depth where that names the arch."""
+    smoke config when ``reduced``, else the whole config at ``layers``
+    where given, or at MESH_SERVE_LAYERS' depth where that names the
+    arch."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3593,12 +3888,11 @@ def mesh_config(arch: str, reduced: bool):
     cfg = get_config(arch)
     if reduced:
         return cfg.reduced()
-    if arch in MESH_SERVE_LAYERS:
-        return dataclasses.replace(cfg, num_layers=MESH_SERVE_LAYERS[arch])
-    return cfg
+    layers = layers or MESH_SERVE_LAYERS.get(arch, 0)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def mesh_serve_model(arch: str, reduced: bool, dtype: str, dev):
+def mesh_serve_model(arch: str, reduced: bool, dtype: str, dev, layers: int = 0):
     """Phase 11 (d)'s and (e)'s model of ``arch`` (``mesh_config``) in
     ``dtype``, its weights drawn from seed 0 in bfloat16
     and, for float32, upcast: both dtypes serve the same weights.  Returns
@@ -3609,7 +3903,7 @@ def mesh_serve_model(arch: str, reduced: bool, dtype: str, dev):
 
     from repro_torch.models import build_model
 
-    cfg = mesh_config(arch, reduced)
+    cfg = mesh_config(arch, reduced, layers)
     drawn = dataclasses.replace(cfg, dtype="bfloat16")
     model = build_model(drawn, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     if dtype == "bfloat16":
@@ -4083,10 +4377,11 @@ def mesh_train_inputs(cfg, reduced: bool, dev, seq: int = 0):
 
 
 def mesh_train_unsharded(dev, reduced: bool, dtype: str, tokens, shape, accum: int,
-                         start: dict | None = None) -> tuple:
+                         start: dict | None = None, layers: int = 0) -> tuple:
     """One SGDM step (MESH_TRAIN_LR) of ``build_train_step`` with no mesh on
-    the card, on MESH_TRAIN_ARCH drawn as phase 11 (d) draws it, at
-    ``accum`` microbatches; in ``dtype``, "float32", or "float64" under
+    the card, on MESH_TRAIN_ARCH drawn as phase 11 (d) draws it (at
+    ``layers``, where given), at ``accum`` microbatches; in ``dtype``,
+    "float32", or "float64" under
     :func:`float64_witness` (which fails if an op still returned float32).
     ``start``, where given, receives each parameter as drawn, in bfloat16
     on the host (exact: bfloat16 draws and the constants 0 and 1).  Returns the
@@ -4102,7 +4397,7 @@ def mesh_train_unsharded(dev, reduced: bool, dtype: str, tokens, shape, accum: i
 
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    cfg, model = mesh_serve_model(MESH_TRAIN_ARCH, reduced, dtype, dev)
+    cfg, model = mesh_serve_model(MESH_TRAIN_ARCH, reduced, dtype, dev, layers)
     cfg = dataclasses.replace(cfg, grad_accum_train=accum)
     witness = float64_witness() if dtype == "float64" else None
     if start is not None:
@@ -4214,7 +4509,7 @@ def mesh_train_run(model, cfg, mesh, batch: dict, lr: float, each_param=None) ->
 def mesh_train_rank(rank: int, world: int, tmp: str) -> None:
     """One rank of phase 11 (e), in a process of its own: a gloo group of
     ``world`` ranks sharing the card (as phase 11 (d)'s), the (2, 2) mesh,
-    MESH_TRAIN_ARCH whole in float32 from seed 0 (``mesh_serve_model``),
+    MESH_TRAIN_ARCH at MESH_TRAIN_LAYERS in float32 from seed 0 (``mesh_serve_model``),
     the parent's tokens, one step of ``mesh_train_run``.  Each gathered
     parameter is held on the card to the float64 witness's
     (:func:`held_to_witness`; ``start.pt`` and ``update.pt``, read a leaf
@@ -4240,7 +4535,8 @@ def mesh_train_rank(rank: int, world: int, tmp: str) -> None:
         mesh = init_device_mesh(dev.type, tuple(spec["shape"]), mesh_dim_names=("data", "model"))
         out: dict = {"staged": stage_gloo_collectives() if dev.type == "cuda" else []}
         t0 = time.perf_counter()
-        cfg, model = mesh_serve_model(spec["arch"], spec["reduced"], "float32", dev)
+        cfg, model = mesh_serve_model(spec["arch"], spec["reduced"], "float32", dev,
+                                      spec["layers"])
         drawn_s = time.perf_counter() - t0
         tokens = torch.load(tmp / "tokens.pt").to(dev)
         start = torch.load(tmp / "start.pt", mmap=True)
@@ -4262,7 +4558,7 @@ def mesh_train_rank(rank: int, world: int, tmp: str) -> None:
 
 
 def mesh_train(dev, reduced: bool) -> dict:
-    """Phase 11 (e): MESH_TRAIN_ARCH whole (``mesh_serve_model``: the
+    """Phase 11 (e): MESH_TRAIN_ARCH at MESH_TRAIN_LAYERS (``mesh_serve_model``: the
     bfloat16 draw of seed 0, upcast) takes one SGDM step of
     ``build_train_step`` on B x S tokens from seed 7
     (:func:`mesh_train_inputs`), first with no mesh on the card in float64
@@ -4289,12 +4585,13 @@ def mesh_train(dev, reduced: bool) -> dict:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_train_"))
     procs: list = []
     try:
-        cfg = dataclasses.replace(mesh_config(MESH_TRAIN_ARCH, reduced), dtype="float32")
+        cfg = dataclasses.replace(mesh_config(MESH_TRAIN_ARCH, reduced, MESH_TRAIN_LAYERS),
+                                  dtype="float32")
         shape, tokens = mesh_train_inputs(cfg, reduced, dev)
         accum = grad_accum_for(cfg, shape, dict(zip(("data", "model"), MESH_SERVE_SHAPE)))
         start: dict = {}
         model, witness, wit_s, wit_peak = mesh_train_unsharded(
-            dev, reduced, "float64", tokens, shape, accum, start)
+            dev, reduced, "float64", tokens, shape, accum, start, MESH_TRAIN_LAYERS)
         with torch.no_grad():
             update = {n: (p - start[n].to(dev, torch.float64)).float().cpu()
                       for n, p in model.named_parameters()}
@@ -4303,7 +4600,7 @@ def mesh_train(dev, reduced: bool) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         model, ref, ref_s, ref_peak = mesh_train_unsharded(dev, reduced, "float32", tokens,
-                                                           shape, accum)
+                                                           shape, accum, layers=MESH_TRAIN_LAYERS)
         with torch.no_grad():
             ref["errs"] = {n: held_to_witness(n, p, start, update)
                            for n, p in model.named_parameters()}
@@ -4316,7 +4613,7 @@ def mesh_train(dev, reduced: bool) -> dict:
             torch.cuda.empty_cache()
         (tmp / "spec.json").write_text(json.dumps({
             "device": dev.type, "shape": list(MESH_SERVE_SHAPE), "arch": MESH_TRAIN_ARCH,
-            "reduced": reduced, "lr": MESH_TRAIN_LR}))
+            "reduced": reduced, "lr": MESH_TRAIN_LR, "layers": MESH_TRAIN_LAYERS}))
         t0 = time.perf_counter()
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=mesh_train_rank, args=(r, world, str(tmp)))

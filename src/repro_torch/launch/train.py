@@ -16,6 +16,11 @@ The weights are random, drawn from ``--seed``; the data is the synthetic
 ``TokenPipeline`` (frame embeddings for the encoder-decoder, image embeds
 for the vlm) and the groups' speeds come from ``sample_traces``.  A
 checkpoint under ``--ckpt-dir`` is resumed from.
+
+``main(argv)`` is ``run(args, build(args))`` with ``args =
+parse_args(argv)``: a caller that builds the model itself (at a cut depth,
+say) trains it with :func:`run`, which reads the architecture from the
+model's config and ``--arch``/``--reduced`` not at all.
 """
 
 from __future__ import annotations
@@ -58,25 +63,41 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
+def build(args: argparse.Namespace):
+    """The model ``args`` name, its weights drawn from ``--seed`` on
+    ``--device``."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
-    model = build_model(cfg, device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(args.seed))
-    print(f"[train] arch={cfg.name} params={param_count(model.specs())/1e6:.1f}M on {dev}",
-          flush=True)
-    opt = make_optimizer(cfg.optimizer, lr=args.lr)
+    return build_model(cfg, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(args.seed))
 
-    pipeline = TokenPipeline(
+
+def make_pipeline(cfg, args: argparse.Namespace) -> TokenPipeline:
+    """The synthetic batches ``run`` trains ``cfg`` on: ``--batch`` x
+    ``--seq`` tokens from ``--seed``, with image embeddings for a vlm and
+    ``--seq // 2`` frames for the encoder-decoder."""
+    return TokenPipeline(
         vocab_size=cfg.vocab_size, batch=args.batch, seq_len=args.seq,
         seed=args.seed,
         image_tokens=cfg.frontend_tokens if cfg.frontend == "vit_stub" else 0,
         image_dim=cfg.frontend_dim if cfg.frontend == "vit_stub" else 0,
         frames=args.seq // 2 if cfg.is_encdec else 0,
         frame_dim=cfg.frontend_dim if cfg.is_encdec else 0)
+
+
+def run(args: argparse.Namespace, model) -> int:
+    """Train ``model`` (from :func:`build`, or any model of the port on the
+    device ``--device`` names) in place for ``--steps`` steps, with the
+    optimizer its config names."""
+    cfg, dev = model.cfg, resolve_device(args.device)
+    if model.device.type != dev.type:
+        raise ValueError(f"the model lies on {model.device}, not on --device {args.device}")
+    print(f"[train] arch={cfg.name} params={param_count(model.specs())/1e6:.1f}M on {dev}",
+          flush=True)
+    opt = make_optimizer(cfg.optimizer, lr=args.lr)
+    pipeline = make_pipeline(cfg, args)
 
     loop_cfg = TrainLoopConfig(
         total_steps=args.steps, ckpt_dir=args.ckpt_dir,
@@ -97,6 +118,11 @@ def main(argv=None) -> int:
     improved = metrics["final_loss"] < metrics["losses"][0]
     print(f"[train] loss_improved={improved}", flush=True)
     return 0
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    return run(args, build(args))
 
 
 if __name__ == "__main__":

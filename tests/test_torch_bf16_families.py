@@ -1,15 +1,17 @@
 """The unsharded port's bfloat16 serving run held to the JAX package's for
-the four decoder architectures whose ops only they use: gemma3-27b
-(local/global attention, rotating caches, the logit softcap, GeGLU),
-internvl2-26b (the ``vit_stub`` projector and its image embeddings),
-mixtral-8x22b (a sliding window on every layer, 8 experts top-2) and
-nemotron-4-340b (squared ReLU, LayerNorm).
+the decoder architectures that ``test_torch_mesh_serve_bf16`` does not
+hold: gemma3-27b (local/global attention, rotating caches, the logit
+softcap, GeGLU), internvl2-26b (the ``vit_stub`` projector and its image
+embeddings), mixtral-8x22b (a sliding window on every layer, 8 experts
+top-2), nemotron-4-340b (squared ReLU, LayerNorm), mistral-nemo-12b and
+mistral-large-123b (global attention, SwiGLU, RMSNorm) and xlstm-125m
+(mLSTM and sLSTM blocks).
 
 Each reduced config, drawn from ``PRNGKey(0)`` in bfloat16 and upcast for
 float32, prefills ``test_torch_mesh_serve``'s prompt (internvl2's with its
 image embeddings, rounded to bfloat16) and takes its decode steps; the
 prompt and the steps pass the reduced window of 16, so the local layers
-decode from rotating caches.  At the prefill and at each step the port's
+of the archs with a window decode from rotating caches.  At the prefill and at each step the port's
 bfloat16 logits are no farther from its float32 run's than
 ``BF16_JAX_RATIO`` times the JAX package's bfloat16 run, compiled without
 excess precision (``tests/_torch_jax_declared.py``), is from its float32
@@ -40,7 +42,8 @@ pytestmark = pytest.mark.usefixtures("jax_on_cpu")   # the JAX reference on the 
 
 torch.set_num_threads(1)
 
-ARCHS = ("gemma3-27b", "internvl2-26b", "mixtral-8x22b", "nemotron-4-340b")
+ARCHS = ("gemma3-27b", "internvl2-26b", "mixtral-8x22b", "nemotron-4-340b",
+         "mistral-nemo-12b", "mistral-large-123b", "xlstm-125m")
 BF16_JAX_RATIO = 2.0       # tests/test_torch_mesh_serve_bf16.py's
 DECLARED_TIMEOUT = 300     # seconds, the declared-rounding JAX process
 
@@ -54,7 +57,8 @@ def test_bfloat16_as_near_float32_as_the_jax_package(arch, tmp_path):
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size,
                                              (T.B, T.STEPS)).astype(np.int32)
     total = T.S + (cfg.frontend_tokens if cfg.frontend == "vit_stub" else 0)
-    assert total + T.STEPS > cfg.sliding_window   # local layers decode from rotating caches
+    if cfg.attn_pattern in ("sliding", "local_global"):
+        assert total + T.STEPS > cfg.sliding_window   # local layers decode from rotating caches
     with ThreadPoolExecutor(1) as pool:
         declared = pool.submit(declared_serve, tmp_path, arch, prompt, toks, total,
                                timeout=DECLARED_TIMEOUT)
