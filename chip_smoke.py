@@ -51,7 +51,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    decodes through ``mds_decode`` (``decode_with_kernel``), planning with
    the LSTM on the card, under the trace's speeds.  A 600,000 × 2,048
    tenant, C = 20, is encoded on the host in float64 as the reference does;
-   then 10 ``GeneralS2C2`` matvec rounds, one ``matmul`` round at B = 8
+   then 5 ``GeneralS2C2`` matvec rounds, one ``matmul`` round at B = 8
    and one at B = 20, each within 1e-3 of a float64 product.  The counters
    are zeroed before each group of rounds and read after it, once every
    worker is idle.  It fails unless every B = 1 chunk launch took the
@@ -84,7 +84,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        sequence launch under grad per epoch and one per evaluation (302,
        the per-step cell never), its test MAPE within 1e-3 (relative) of
        the JAX package's training (the committed parameters) and below
-       the untrained model's; 10 epochs all plain on the card and on the
+       the untrained model's; 5 epochs all plain on the card and on the
        CPU are timed beside it;
    (b) logistic regression and the SVM by 100 steps of gradient descent
        on ``make_lr_dataset(240,000, 5,000)`` with A·w coded ((12, 10)
@@ -154,9 +154,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    softcap, the head tied to the embedding), internvl2-26b whole (48
    layers, the projector of 256 image embeddings of width 3,200, a
    92,553-token vocabulary padded to 92,672), mixtral-8x22b at 14 of 56
-   layers (8 experts top-2, a 4,096-token window on every layer) and
+   layers (8 experts top-2, a 4,096-token window on every layer),
    nemotron-4-340b at 8 of 96 layers (d_model 18,432, head_dim 192,
-   squared ReLU, LayerNorm): the cut archs at the most layers that leave
+   squared ReLU, LayerNorm) and mistral-large-123b at 26 of 88 layers
+   (d_model 12,288, 96 query heads over 8 KV heads, SwiGLU of d_ff
+   28,672, an untied head): the cut archs at the most layers that leave
    8 GiB of the card free after the build (the depth is printed; the
    phase fails, never shrinks, where they do not fit);
    (a) ``launch.serve.run(parse_args(["--arch", A, "--coded-head"]),
@@ -197,8 +199,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
        model of (a) for zamba2 and xlstm, else on a bfloat16 draw of the
        first layers at full width from the same seed (the same embedding
        and first layers: phi 4, gemma3 6, so that global layer 5 is in,
-       internvl2 4, mixtral 4, nemotron 1), on whose float32 weights (c)
-       runs;
+       internvl2 4, mixtral 4, nemotron 1, mistral-large 4), on whose
+       float32 weights (c) runs;
    (e) the coded head at each untied head (``hold_coded_head``: exactly
        one launch of each kernel, each held against its plain version;
        nemotron's 18,432 × 256,000 head built here, after its layers are
@@ -237,12 +239,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         vocab 50,304, random from seed 0) with ``examples/train_lm.py``'s
         flags without ``--reduced`` but the sequence: coded DP over 8 groups
         tolerating 2, group 3 killed at step 10, batch 16, seq 32 (the
-        example's 48 cut for the script's time), 12 steps into a temporary
+        example's 48 cut for the script's time), 11 steps into a temporary
         checkpoint directory (24 microbatches a step), group 3 dead in
-        exactly steps 10 and 11 (the loop's 5-step window, cut by the run's
-        end; the CPU rehearsal's 15 steps hold all of it); every loss
-        finite and ``loss_improved=True`` printed; then ``main`` again with
-        13 steps, which must resume from the step-11 checkpoint and run the
+        exactly step 10 (the loop's 5-step window, cut by the run's end;
+        the CPU rehearsal's 15 steps hold all of it); every loss finite and
+        ``loss_improved=True`` printed; then ``main`` again with 12 steps,
+        which must resume from the step-10 checkpoint and run the
         step left; each step's time (the card synchronised at its start)
         and the peak memory;
     (b) zamba2-1.2b whole (38 Mamba-2 layers and the shared attention
@@ -261,14 +263,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (e) one coded microbatch of each (B = 2, S = 32: ``loss_fn`` and the
         gradient of every parameter) under ``torch.profiler``: its kernels'
         time, launches and the device's idle share;
-    (f) the three families (a) and (b) do not train, at full width in
+    (f) the four families (a) and (b) do not train, at full width in
         bfloat16 from seed 0, each through ``launch.train.run`` for 1 coded
         AdamW step: seamless-m4t-large-v2 whole (24 encoder and 24 decoder
         layers, 1.633 B parameters) over 8 groups tolerating 2, 16 x 32
         tokens and 16 frames a sequence; phi3.5-moe-42b-a6.6b at 1 of 32
-        layers (1.565 B) over 4 groups tolerating 1, 8 x 256 tokens; and
+        layers (1.565 B) over 4 groups tolerating 1, 8 x 256 tokens;
         gemma3-27b at 1 of 62 layers (a local layer, 1.843 B) over 4 groups
-        tolerating 1, 4 x 2,048 tokens, past its 1,024-token window.  Before
+        tolerating 1, 4 x 2,048 tokens, past its 1,024-token window; and
+        mistral-large-123b at 1 of 88 layers (2.189 B: GQA attention over 96
+        query and 8 KV heads, SwiGLU, RMSNorm, an untied head) over 4 groups
+        tolerating 1, 8 x 256 tokens.  Before
         each build its reckoning in place (the parameters, AdamW's moments,
         the coded trees and a microbatch's gradients) must leave 8 GiB of
         the card's free memory (seamless falls back to 4 groups tolerating
@@ -305,7 +310,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         finite, its time and the peak memory;
     (c) ``build_prefill_step`` and ``build_decode_step`` on mistral-nemo-12b
         whole in bfloat16, ``decode_32k``'s batch of 128 cut to 4 and its
-        context to a 2,048-token prompt, 16 greedy steps: the logits and
+        context to a 2,048-token prompt, 8 greedy steps: the logits and
         tokens bit for bit ``LM.prefill`` and ``LM.decode_step`` called
         directly; then the parameters placed by ``param_shardings`` on a
         (1, 1) mesh over a world-size-1 NCCL group, whose tokens must be the
@@ -318,7 +323,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
         and phi3.5-moe-42b-a6.6b at full width and 2 of its 32 layers (its
         experts split over the model axis, the dispatch an all-to-all), in
         bfloat16 and in float32 with the same weights, 4 x 512 tokens
-        (seamless: 512 frames and 512 tokens) and 4 steps decoding the
+        (seamless: 512 frames and 512 tokens) and 2 steps decoding the
         unsharded bfloat16 run's greedy tokens; each rank's heads, experts,
         caches and recurrent states its own (``partition.on_local_shards``),
         every cache a DTensor placed by ``cache_sharding_rules`` after the
@@ -418,7 +423,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # as in examples/pagerank.py), with d = 2,048 float32 columns
 N, K, CHUNKS, ROWS, COLS, ITERS = 12, 10, 20, 600_000, 2_048, 30
 # the cluster phase: the same code, D, C and d
-CL_ROUNDS, CL_ROW_COST, CL_WIDTHS = 10, 1e-5, (8, 20)     # 10 rounds, not 20: the script's time
+# 5 rounds, not 20 (10 before mistral-large-123b came): the script's time
+CL_ROUNDS, CL_ROW_COST, CL_WIDTHS = 5, 1e-5, (8, 20)
 MULTI_WIDTHS = (2, 4, 8, 16)    # coded_matvec's multi design in turns at a chunk
 WINDOW = 32                     # the predictor's window (SpeedPredictor's default)
 REL_ERR_LIMIT = 1e-3
@@ -437,7 +443,7 @@ PRED_TRACES = dict(n_nodes=20, n_iters=400, noise_sigma=0.08, p_become_straggler
                    p_recover=0.25, drift_sigma=0.05)
 PRED_SEED, PRED_EPOCHS = 7, 300
 PRED_MAPE_RTOL = 1e-3           # the port's training against the JAX package's, test MAPE
-PLAIN_EPOCHS = 10               # all-plain training, timed per epoch (not 30: the script's time)
+PLAIN_EPOCHS = 5                # all-plain training, timed per epoch (not 30: the script's time)
 SVM_OBJECTIVE_RTOL = 3e-5       # 10x the worst reading of PR 17's runs (2.8e-6)
 LR_ROWS, LR_COLS, LR_ITERS, LR_STEP = 240_000, 5_000, 100, 0.5
 PR_NODES, PR_DEGREE, PR_ITERS, PR_DAMPING = 32_768, 16, 40, 0.85
@@ -458,21 +464,25 @@ LONG_BATCH, LONG_CONTEXT, LONG_STEPS = 4, 2_048, 8
 BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense bfloat16 tensor cores
 # phase 8, the other decoder families through the same entry point, each at
 # full width in bfloat16 from seed 0: zamba2-1.2b, xlstm-125m, gemma3-27b
-# and internvl2-26b whole; phi3.5-moe, mixtral-8x22b and nemotron-4-340b at
-# the depth of FAMILY_LAYERS, the most layers that leave FREE_AFTER_BUILD
-# free on an 80 GB card (73.35, 70.92 and 74.14 GB; the phase fails where
-# they do not fit, it never shrinks them)
+# and internvl2-26b whole; phi3.5-moe, mixtral-8x22b, nemotron-4-340b and
+# mistral-large-123b at the depth of FAMILY_LAYERS, the most layers that
+# leave FREE_AFTER_BUILD free on an 80 GB card (73.35, 70.92, 74.14 and 73.59
+# GB; mistral-large's 27 layers, 76.36 GB, would leave 7.7-7.9 GB of the
+# 84.1-84.3 GB free before a build; the phase fails where they do not fit,
+# it never shrinks them)
 FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-125m", "gemma3-27b",
-                "internvl2-26b", "mixtral-8x22b", "nemotron-4-340b")
+                "internvl2-26b", "mixtral-8x22b", "nemotron-4-340b", "mistral-large-123b")
 MOE_ARCH, MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 28
-FAMILY_LAYERS = {MOE_ARCH: MOE_LAYERS, "mixtral-8x22b": 14, "nemotron-4-340b": 8}
+FAMILY_LAYERS = {MOE_ARCH: MOE_LAYERS, "mixtral-8x22b": 14, "nemotron-4-340b": 8,
+                 "mistral-large-123b": 26}
 FREE_AFTER_BUILD = 8 * 2**30    # room for the caches, the prefill and the coded head
 # (c) and (d) on a bfloat16 draw of the first layers at full width where the
 # whole model's float32 twin does not fit (upcast in place, in float32:
 # phi 4 layers 21.9, gemma3 6 16.0, internvl2 4 10.9, mixtral 4 41.7,
-# nemotron 1 51.6 GB); zamba2's and xlstm's on the model of (a)
+# nemotron 1 51.6, mistral-large 4 25.4 GB); zamba2's and xlstm's on the
+# model of (a)
 F32_LAYERS = {MOE_ARCH: 4, "gemma3-27b": 6, "internvl2-26b": 4, "mixtral-8x22b": 4,
-              "nemotron-4-340b": 1}
+              "nemotron-4-340b": 1, "mistral-large-123b": 4}
 # served without --coded-head: nemotron's coded head in float32 (the dense
 # head 18.9 GB and 6 coded partitions of 64,000 rows, 28.3 GB) does not fit
 # beside its layers; (e) builds and holds it alone
@@ -530,8 +540,10 @@ TRAIN_BIG = "zamba2-1.2b"
 # the loss, 11.2020 to 11.2826.  Since (e)'s float64 witness, for the
 # script's time: the sLSTM's long scan is 1,024, not 2,048; since phase 8
 # serves seven archs: the restart resumes 1 step, not 3, and zamba2 takes
-# BIG_STEPS = 1, not 3, each timed up to the final checkpoint)
-TRAIN_STEPS = (12, 13, 16, 32)          # steps, steps after the restart, batch, seq
+# BIG_STEPS = 1, not 3, each timed up to the final checkpoint; 11 steps, not
+# 12, since phase 8 serves and (f) trains mistral-large-123b: the window cut
+# to step 10 alone, the restart to 12 resuming 1)
+TRAIN_STEPS = (11, 12, 16, 32)          # steps, steps after the restart, batch, seq
 TRAIN_STEPS_REDUCED = (15, 18, 8, 16)   # the CPU test's
 DEAD_STEPS = 5                          # train_loop.train's window for a killed group
 BIG_STEPS = 1
@@ -539,15 +551,18 @@ SLSTM_BS = (2, 64)
 SLSTM_LONG_S = {False: 1_024, True: 256}
 SLSTM_BWD_REL = 1e-4                    # of each gradient's largest value
 PROFILED_MICROBATCHES = 2
-# (f) the three families phase 10 had not trained, at full width through
+# (f) the four families phase 10 had not trained, at full width through
 # launch.train.run, BIG_STEPS coded AdamW steps each: seamless-m4t-large-v2
-# whole with examples/train_lm.py's flags (16 frames a sequence); phi3.5-moe
-# and gemma3-27b at TRAIN_LAYERS, the most that fit one card by the in-place
-# reckoning (phi 1.565 B parameters at one layer, 43.8 GB at 4 groups, two
-# layers 2.865 B do not fit; gemma3 1.843 B, 51.6 GB, its first global layer
-# is the sixth and six layers, 4.01 B, do not fit), gemma3's 2,048 tokens past
-# its 1,024-token window.  Seamless at 8 groups reckons 71.9 GB in place; where
-# that does not fit it takes TRAIN_FALLBACK_GROUPS (4 groups tolerating 1).
+# whole with examples/train_lm.py's flags (16 frames a sequence); phi3.5-moe,
+# gemma3-27b and mistral-large-123b at TRAIN_LAYERS, the most that fit one
+# card by the in-place reckoning (phi 1.565 B parameters at one layer, 43.8
+# GB at 4 groups, two layers 2.865 B do not fit; gemma3 1.843 B, 51.6 GB, its
+# first global layer is the sixth and six layers, 4.01 B, do not fit;
+# mistral-large 2.189 B, 61.3 GB, where 8 groups reckon 96.3 and two layers,
+# 3.573 B, do not fit at 4), gemma3's 2,048 tokens past its 1,024-token
+# window; mistral-large with phi's 8 x 256 tokens.  Seamless at 8 groups
+# reckons 71.9 GB in place; where that does not fit it takes
+# TRAIN_FALLBACK_GROUPS (4 groups tolerating 1).
 # Then the loss and every gradient on one sequence of the first batch in
 # float32, with the weights the run started from, held to float64
 # (float64_witness) at MESH_TRAIN_TOL and, leaf by leaf, at
@@ -555,8 +570,9 @@ PROFILED_MICROBATCHES = 2
 # (NVIDIA H100 80GB HBM3, 700 W) (f) took 113.9 s alone: seamless 67.0
 # (a step 25.4 s, its 16.3 GB final checkpoint about 14), phi 20.4, gemma3
 # 22.6; peaks 74.06, 47.23 and 62.94 GB
-TRAIN_FAMILIES = ("seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b", "gemma3-27b")
-TRAIN_LAYERS = {"phi3.5-moe-42b-a6.6b": 1, "gemma3-27b": 1}
+TRAIN_FAMILIES = ("seamless-m4t-large-v2", "phi3.5-moe-42b-a6.6b", "gemma3-27b",
+                  "mistral-large-123b")
+TRAIN_LAYERS = {"phi3.5-moe-42b-a6.6b": 1, "gemma3-27b": 1, "mistral-large-123b": 1}
 TRAIN_FLAGS = {
     "seamless-m4t-large-v2": ("--arch", "seamless-m4t-large-v2", "--coded-dp", "--groups", "8",
                               "--tolerate", "2", "--batch", "16", "--seq", "32"),
@@ -564,6 +580,8 @@ TRAIN_FLAGS = {
                              "--tolerate", "1", "--batch", "8", "--seq", "256"),
     "gemma3-27b": ("--arch", "gemma3-27b", "--coded-dp", "--groups", "4", "--tolerate", "1",
                    "--batch", "4", "--seq", "2048"),
+    "mistral-large-123b": ("--arch", "mistral-large-123b", "--coded-dp", "--groups", "4",
+                           "--tolerate", "1", "--batch", "8", "--seq", "256"),
 }
 # the CPU test's: the reduced configs, gemma3's 32 tokens past the reduced window of 16
 TRAIN_FLAGS_REDUCED = {
@@ -582,11 +600,12 @@ MESH_ITERS, MESH_TIMEOUT = 10, 600
 MESH_SIZE_REDUCED = (4, 3, 6, 360, 16, 3)   # the CPU test's n, k, C, rows, cols, iterations
 # (b) takes one step since phase 11 (d) came (two before), and 4 sequences
 # since phase 8 serves seven archs (8 before; phase 12 (b) counts the same
-# step again), for the script's time; the CPU test's reduced run two
+# step again), for the script's time; the CPU test's reduced run two.
+# (c) takes 8 greedy steps, not 16, since mistral-large-123b came
 STEP_TRAIN_ARCH, STEP_TRAIN_BATCH, STEP_TRAIN_STEPS = "zamba2-1.2b", 4, 1
 STEP_TRAIN_STEPS_REDUCED = 2
 STEP_SERVE_ARCH, STEP_SERVE_BATCH, STEP_SERVE_PROMPT, STEP_SERVE_STEPS = (
-    "mistral-nemo-12b", 4, 2_048, 16)
+    "mistral-nemo-12b", 4, 2_048, 8)
 # (d) build_prefill_step and build_decode_step on a MESH_SERVE_SHAPE
 # ("data", "model") mesh of spawned ranks sharing the card over gloo, each
 # model whole from seed 0 in bfloat16 and in float32 (the same weights,
@@ -616,7 +635,8 @@ MESH_SERVE_LAYERS = {"phi3.5-moe-42b-a6.6b": 2}
 MESH_BF16_RATIO = 1.5
 MESH_SERVE_DTYPES = ("float32", "bfloat16")
 MESH_SERVE_SHAPE, MESH_SERVE_TIMEOUT = (2, 2), 600
-MESH_SERVE_TRAFFIC = (4, 512, 4)             # B, P, S (8 steps before (e)'s witness)
+# B, P, S (8 steps before (e)'s witness, 4 before mistral-large-123b came)
+MESH_SERVE_TRAFFIC = (4, 512, 2)
 MESH_SERVE_TRAFFIC_REDUCED = (4, 16, 4)      # the CPU test's
 # (e) build_train_step on the same mesh of spawned ranks: zamba2-1.2b at
 # full width and MESH_TRAIN_LAYERS of its 38 layers, drawn as (d) draws it
@@ -3456,7 +3476,7 @@ def train_phase(dev, compare, reduced: bool = False) -> tuple:
                                      seed=0).next_batch(), dev, 2)
         record[key]["microbatch"] = microbatch_profile(f"phase 10 (e) {arch}", model, mb)
         del model, mb
-    # (f) the three families never trained on the card before, at full width
+    # (f) the four families never trained on the card before, at full width
     print(f"phase 10 (f): TRAIN_FAMILIES {TRAIN_FAMILIES}, TRAIN_LAYERS {TRAIN_LAYERS}, "
           f"TRAIN_FLAGS {TRAIN_FLAGS_REDUCED if reduced else TRAIN_FLAGS}, BIG_STEPS "
           f"{BIG_STEPS}", flush=True)

@@ -220,10 +220,11 @@ class KernelBackend:
 
     One instance is shared by all workers of ONE engine (shard ids are
     engine-scoped — do not share a backend between engines); cache
-    mutation is lock-guarded, compute itself runs lock-free.  Both caches
-    are LRU-capped so a rare drop/compute race (a straggler mid-task while
-    its tenant unloads re-caching an already-dropped shard) stays a bounded
-    cache entry, never an unbounded leak.
+    mutation is lock-guarded, compute itself runs lock-free.  A straggler
+    mid-chunk while its tenant unloads may cache the shard again after
+    ``drop_shard``; its ``Worker`` drops it once more when the chunk
+    returns, so no shard outlives its tenant.  Both caches are LRU-capped
+    as well.
     """
 
     _SHARD_CACHE_CAP = 128
@@ -691,6 +692,13 @@ class Worker(threading.Thread):
                 f"{type(exc).__name__}: {exc}", t_start=tp.t_start))
             self._drop_everything()
             return
+        if self._compute_drop is not None:
+            # unloaded while this chunk computed: the backend may have cached
+            # the shard again after drop_shard evicted it, so evict it here
+            with self._shard_lock:
+                dropped = task.shard_id not in self.shards
+            if dropped:
+                self._compute_drop(self.worker_id, task.shard_id)
         # a B-wide chunk is B× the work: stretch its virtual time to match,
         # or injected slowdowns would under-throttle batched rounds
         target = (r1 - r0) * rhs_width(task.x) * task.row_cost / s

@@ -23,7 +23,9 @@ On a card (``cuda`` marker): the backend against its own CPU run, the
 kernel decode on the card, and a 12-worker round with exact launch counts.
 """
 
+import collections
 import os
+import queue
 import subprocess
 import sys
 import threading
@@ -340,9 +342,44 @@ def test_kernel_backend_decodes_exactly():
         eng.shutdown()
 
 
+class _UploadLog(KernelBackend):
+    """The port's backend, recording each shard upload by (worker, shard id)
+    and each worker that computed a chunk; ``gate``, when set, holds every
+    chunk until it is set."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.uploads = collections.Counter()
+        self.computed = set()
+        self.gate = None
+        self.entered = threading.Event()
+
+    def _device_shard(self, worker_id, shard_id, shard):
+        with self._lock:
+            cached = (worker_id, shard_id) in self._shards
+        if not cached:          # one worker thread touches its own key
+            self.uploads[(worker_id, shard_id)] += 1
+        return super()._device_shard(worker_id, shard_id, shard)
+
+    def compute_chunk(self, worker_id, shard_id, shard, r0, r1, x):
+        self.entered.set()
+        if self.gate is not None:
+            assert self.gate.wait(30)
+        self.computed.add(worker_id)
+        return super().compute_chunk(worker_id, shard_id, shard, r0, r1, x)
+
+
 class TestKernelBackendCache:
     def test_shard_cache_populates_and_evicts(self):
-        backend = kernel_backend(CPU)
+        """Each worker that computes a chunk uploads its shard once, a second
+        round uploads none again, and ``unload`` evicts them all.  Which
+        workers compute depends on the schedule (an idle worker steals a
+        slow one's queued chunks and computes them from its own shard, and
+        the workers still busy when k of n cover every chunk are
+        cancelled), so each count is read once every worker is idle and
+        held to the workers that computed, among them every worker the
+        round's decode used."""
+        backend = _UploadLog(CPU)
         assert isinstance(backend, KernelBackend)
         n, k, chunks = 4, 2, 4
         eng = port_engine(n, k, tcl.NoSlowdown(), compute=backend)
@@ -350,16 +387,49 @@ class TestKernelBackendCache:
         try:
             a, x = rng.standard_normal((64, 16)), rng.standard_normal(16)
             data = eng.load_matrix(a, chunks=chunks)
-            out = eng.matvec(data, x, tstrat.GeneralS2C2(n, k, 64, chunks=chunks))
-            np.testing.assert_allclose(out.y, a @ x, rtol=1e-4, atol=1e-4)
-            assert backend.cache_info()["shards"] == n      # each shard uploaded once
-            out2 = eng.matvec(data, x, tstrat.GeneralS2C2(n, k, 64, chunks=chunks))
-            np.testing.assert_allclose(out2.y, a @ x, rtol=1e-4, atol=1e-4)
-            assert backend.cache_info()["shards"] == n      # no re-upload
+            for _ in range(2):
+                out = eng.matvec(data, x, tstrat.GeneralS2C2(n, k, 64, chunks=chunks))
+                np.testing.assert_allclose(out.y, a @ x, rtol=1e-4, atol=1e-4)
+                _wait_idle(eng)
+                used = {w for w in range(n) if out.metrics.useful_rows[w] > 0}
+                assert len(used) >= k and used <= backend.computed
+                assert backend.cache_info()["shards"] == len(backend.computed)
+                # each shard uploaded once, none again by the second round
+                assert backend.uploads == {(w, data.shard_id): 1 for w in backend.computed}
             eng.unload(data)
+            _wait_idle(eng)
             assert backend.cache_info()["shards"] == 0      # evicted with the tenant
         finally:
             eng.shutdown()
+
+    def test_shard_unloaded_mid_chunk_is_not_kept(self):
+        """A chunk that uploads its shard after ``unload`` evicted it (a
+        straggler mid-task while its tenant unloads) leaves nothing
+        cached once its worker is idle."""
+        backend = _UploadLog(CPU)
+        backend.gate = threading.Event()
+        events = queue.Queue()
+        worker = tcl.worker.Worker(0, events, tcl.NoSlowdown(), compute=backend)
+        worker.start()
+        try:
+            shard = np.arange(32, dtype=np.float64).reshape(4, 8)
+            worker.install_shard("t0", shard)
+            worker.submit(tcl.worker.ChunkTask(0, 0, "t0", [(0, 0, 4)], np.ones(8), 1e-9,
+                                               threading.Event()))
+            assert backend.entered.wait(30)     # the chunk holds the shard, not yet uploaded
+            worker.drop_shard("t0")             # the tenant unloads
+            backend.gate.set()
+            done = events.get(timeout=30)
+            np.testing.assert_allclose(done.result, shard @ np.ones(8), rtol=1e-5)
+            deadline = time.monotonic() + 30
+            while not worker.idle():
+                assert time.monotonic() < deadline, "worker still busy"
+                time.sleep(0.01)
+            assert backend.uploads == {(0, "t0"): 1}
+            assert backend.cache_info()["shards"] == 0
+        finally:
+            worker.stop()
+            worker.join(30)
 
     def test_inplace_mutated_x_is_not_served_stale(self):
         backend = kernel_backend(CPU)

@@ -328,12 +328,30 @@ def test_mistral_nemo_full_size():
     assert 24.4e9 < tree_bytes(model.specs()) < 24.6e9
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# the card's free memory before a build, read on one H100 80GB HBM3 by
+# chip_smoke.py's phase 10 (f) (0.08 GB still allocated)
+CARD_FREE = 84.10e9
+
+
 def test_phase_eight_full_sizes():
     """The slice's configurations on ``meta``: phi3.5-moe at 2.60 GB a layer
     in bfloat16 (16 experts of d_ff 6,400), so 28 of its 32 layers take
     73.3 GB; zamba2-1.2b's 38 Mamba-2 layers with 7 applications of one
     shared attention block, each with its own KV cache; xlstm-125m's 9
-    mLSTM and 3 sLSTM layers."""
+    mLSTM and 3 sLSTM layers; mistral-large-123b at 2.768 GB a layer and
+    1.611 GB of embeddings, so that FAMILY_LAYERS' 26 layers leave
+    FREE_AFTER_BUILD of the card's free memory and 27 do not."""
     phi = LM(get_config("phi3.5-moe-42b-a6.6b"), device="meta")
     layer = sum(p.numel() * p.dtype.itemsize for p in phi.layers[0].parameters())
     embed = sum(p.numel() * p.dtype.itemsize for p in phi.embed.parameters())
@@ -349,6 +367,18 @@ def test_phase_eight_full_sizes():
     xlstm = LM(get_config("xlstm-125m"), device="meta")
     assert [slot.kind for slot in xlstm.slots] == ["mlstm"] * 3 + ["slstm"] + ["mlstm"] * 3 + [
         "slstm"] + ["mlstm"] * 3 + ["slstm"]
+    smoke = _chip_smoke()
+    large = LM(get_config("mistral-large-123b"), device="meta")
+    layer = sum(p.numel() * p.dtype.itemsize for p in large.layers[0].parameters())
+    embed = sum(p.numel() * p.dtype.itemsize for p in large.embed.parameters())
+    assert large.layers[0]["attn"]["wk"].shape == (12288, 1024)
+    assert large.embed["head"].shape == (12288, 32768)
+    assert 2.768e9 < layer < 2.769e9 and 1.610e9 < embed < 1.611e9
+    depth = smoke.FAMILY_LAYERS["mistral-large-123b"]
+    cut = dataclasses.replace(get_config("mistral-large-123b"), num_layers=depth)
+    need = sum(p.numel() * p.dtype.itemsize for p in LM(cut, device="meta").parameters())
+    assert 73.58e9 < need < 73.59e9 and need == pytest.approx(depth * layer + embed, abs=1e6)
+    assert need + smoke.FREE_AFTER_BUILD <= CARD_FREE < need + layer + smoke.FREE_AFTER_BUILD
 
 
 def test_converter_carries_the_shared_attention_block():

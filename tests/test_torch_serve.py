@@ -257,12 +257,14 @@ def _in_turns(label, fns, order):
 
 
 def test_chip_smoke_phase_eight_on_the_cpu(monkeypatch, capsys):
-    """Phase 8 on the reduced configs of its seven archs: the entry point's
+    """Phase 8 on the reduced configs of its eight archs: the entry point's
     coded head where it builds one (not for gemma3's tied head, not for
     nemotron, whose head (e) builds alone), (b)'s real context of 256
     tokens past the reduced window of 16, so that gemma3's local layers and
     mixtral's decode from rotating caches, internvl2's prefill with its
-    image embeddings, and (c)-(e)."""
+    image embeddings, and (c)-(e); mistral-large's (c) and (d) on a draw of
+    its first F32_LAYERS layers, its untied head coded at the entry point
+    and held in (e)."""
     smoke = _chip_smoke()
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
@@ -275,7 +277,8 @@ def test_chip_smoke_phase_eight_on_the_cpu(monkeypatch, capsys):
                                              reduced=True)
     assert launches == dict.fromkeys(launches, 0)      # the CPU launches no kernel
     assert list(records) == ["phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-125m", "gemma3-27b",
-                             "internvl2-26b", "mixtral-8x22b", "nemotron-4-340b"]
+                             "internvl2-26b", "mixtral-8x22b", "nemotron-4-340b",
+                             "mistral-large-123b"]
     for arch, rec in records.items():
         assert rec["tokens"] == 48 and rec["steps"] == 32
         assert rec["f32_handoff_rel_err"] <= smoke.F32_HANDOFF_REL
@@ -302,9 +305,16 @@ def test_chip_smoke_phase_eight_on_the_cpu(monkeypatch, capsys):
         moe = records[arch]
         assert 0 < moe["routed_share"] <= 1 and moe["routed_bound_ms"] <= moe["step_bound_ms"]
         assert moe["moe_bf16_rel_err"] <= smoke.BF16_REL
+    large = records["mistral-large-123b"]
+    reduced = get_config("mistral-large-123b").reduced()
+    assert large["layers"] == reduced.num_layers
+    assert large["f32_layers"] == min(smoke.F32_LAYERS["mistral-large-123b"], reduced.num_layers)
+    assert large["coded_head_err"] <= smoke.REL_ERR_LIMIT
+    assert large["long"][0]["cache_lengths"] == {
+        "global": {256 + smoke.LONG_STEPS + smoke.PROFILED_STEPS + 4: reduced.num_layers}}
     out = capsys.readouterr().out
-    assert out.count("6 requests, 48 tokens") == 7 and "phase 8 xlstm-125m (c)" in out
-    assert out.count("(e): coded lm_head (6, 4)") == 6
+    assert out.count("6 requests, 48 tokens") == 8 and "phase 8 xlstm-125m (c)" in out
+    assert out.count("(e): coded lm_head (6, 4)") == 7
 
 
 def test_chip_smoke_decode_step_bound():

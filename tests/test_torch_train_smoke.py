@@ -5,8 +5,8 @@ group 3 killed at step 10, then restarted from its checkpoint; zamba2-1.2b
 for BIG_STEPS steps beside its memory reckoning; the sLSTM scan's backward
 against float64 and at a long sequence; every kernel counter at 0; a
 microbatch of each arch run where the card's profiler would time it; (f)
-seamless-m4t-large-v2 whole, phi3.5-moe and gemma3 at one layer through
-``launch.train.run``, each held to its float64 witness.  Then the
+seamless-m4t-large-v2 whole, phi3.5-moe, gemma3 and mistral-large at one
+layer through ``launch.train.run``, each held to its float64 witness.  Then the
 reckonings at full size on ``meta``, the entry point's split (``main`` is
 ``run(args, build(args))``; ``run`` trains the model it is given), and the
 ``cuda`` twins: the training entry point on the card launches none of the
@@ -92,6 +92,12 @@ def test_chip_smoke_phase_ten_on_the_cpu(monkeypatch, capsys):
         assert wit["worst_leaf_rel_err"] <= smoke.MESH_TRAIN_UPDATE_TOL
         assert wit["leaves"] == len(list(build_model(cfg, device="meta").parameters()))
     assert record["families"]["phi3.5-moe-42b-a6.6b"]["witness"]["routed_otherwise"] == 0
+    # the dense family's backward: GQA attention, SwiGLU, RMSNorm and an untied head
+    large = record["families"]["mistral-large-123b"]
+    assert large["layers"] == 1 and (large["groups"], large["tolerate"]) == (4, 1)
+    assert len(large["losses"]) == 1 and math.isfinite(large["losses"][0])
+    assert large["witness"]["float32_ops"] == {}
+    assert large["witness"]["worst_leaf_rel_err"] <= smoke.MESH_TRAIN_UPDATE_TOL
     assert record["launches"] == dict.fromkeys(record["launches"], 0)
     out = capsys.readouterr().out
     assert "[train] loss_improved=True" in out and "dead=[3]" in out
@@ -119,6 +125,7 @@ def test_zamba2_training_reckoning_at_full_size():
     ("seamless-m4t-large-v2", 8, 1.633, 84.9, 71.9),
     ("phi3.5-moe-42b-a6.6b", 4, 1.565, 56.3, 43.8),
     ("gemma3-27b", 4, 1.843, 66.3, 51.6),
+    ("mistral-large-123b", 4, 2.189, 78.8, 61.3),
 ])
 def test_family_training_reckoning_at_full_size(arch, groups, params, total, in_place):
     """Phase 10 (f)'s archs at full width and TRAIN_LAYERS' depth, at the
