@@ -71,7 +71,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``call_ms``, the decode's times, ``calibrate_row_cost`` and the
    backend's caches.  Then a small pool of spawned worker processes
    (``SocketTransport``, 4 workers, each building the CUDA backend on the
-   card from the library built here) runs 3 exact rounds;
+   card from the library built here) runs 3 exact rounds.  Last, the
+   cluster's fault paths: ``scripts/torch_chaos_demo.py``'s three scenarios
+   at seed 0 at the script's sizes, each a pool of spawned workers
+   computing through the CUDA backend (``kernel:cuda:<index>``) on
+   float32 shards resident on the card (kill at the main path's 60,000 ×
+   2,048 a worker, D = 240,000; partition and recover at 20,000 × 2,048,
+   D = 60,000), the master decoding
+   through ``mds_decode`` and planning with the LSTM on the card: ``kill``
+   ((6, 4), a worker SIGKILLed mid-round: a fail-stop verdict on its dead
+   process before the first failover, the worker fenced, the card's memory
+   regaining at least its 491.5 MB shard), ``partition`` ((3, 3), a 2 s
+   events-only partition: a verdict, a rejoin, chunks of the partition
+   credited, not recomputed) and ``recover`` (the master crashed mid-round
+   and rebuilt from its journal: one recovered round, no journaled ack
+   re-enqueued, the adopted children's shards not uploaded again); every
+   ``y`` within 1e-4 of float64, the master's ``mds_decode`` once a decoded
+   round and sequence launches once a prediction from history, no segment
+   of the scenario's pool (``s2c2shm_<uid>``) left in ``/dev/shm`` and the
+   card's memory in use back within 1 GB after each, one survivor's chunk
+   and one round's decode held to their plain versions;
 6. the paper's workloads at full size, through ``repro_torch.workloads``
    (the loops the examples run), each step with its launches counted from
    0 and checked, each of its kernels then held against its plain version
@@ -385,7 +404,11 @@ the in-turn times as JSON, the per-kernel record as JSON (``ms``,
 times; ``launches`` the main path's, ``cluster_launches`` the cluster
 phase's, ``workload_launches`` phase 6's, ``serve_launches`` phase 7's entry
 point's, ``families_launches`` phase 8's entry points',
-``encdec_launches`` phase 9's coded head's, ``train_launches`` phase 10's,
+``encdec_launches`` phase 9's coded head's, ``chaos_launches`` the
+master's in phase 5's fault scenarios (null for ``coded_matvec``'s records:
+the spawned children launch it, and their counters stay in their
+processes; the chunk spans they forwarded are in the ``chaos`` record),
+``train_launches`` phase 10's,
 all 0, ``mesh_launches`` phase 11 (a)'s, summed over the ranks, and for the
 predictor's kernel the parent's, ``demo_launches`` phase 12 (c)'s) and the
 device line.
@@ -964,6 +987,39 @@ def cluster_phase(dev, call_ms, timed, compare, in_turns, rows: int) -> tuple[di
     print(f"cluster processes: {n} spawned workers ({spec}) started in {start_s:.1f} s; 3 "
           f"rounds, worst relative error {worst:.3e}", flush=True)
     return totals, multi_record
+
+
+def chaos_demo():
+    """``scripts/torch_chaos_demo.py`` as a module, registered under its
+    name (its dataclasses need it)."""
+    import importlib.util
+
+    if "torch_chaos_demo" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "torch_chaos_demo", ROOT / "scripts" / "torch_chaos_demo.py")
+        demo = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = demo
+        spec.loader.exec_module(demo)
+    return sys.modules["torch_chaos_demo"]
+
+
+def chaos_part(dev) -> tuple[dict, dict]:
+    """Phase 5's last part: ``scripts/torch_chaos_demo.py``'s three fault
+    scenarios at seed 0 on the card, at the script's sizes (each raises
+    where its property fails).  Returns the master's launches by kernel
+    record name, summed over the scenarios (the spawned children's
+    ``coded_matvec`` launches are counted in their own processes and not
+    read here), and each scenario's record."""
+    launches = collections.Counter()
+    records = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+        for name, scenario in chaos_demo().SCENARIOS.items():
+            out = scenario(0, str(Path(tmp) / f"{name}.json"), 4, device=dev)
+            launches["mds_decode"] += out["launches"]["mds_decode"]
+            launches["lstm_cell"] += out["launches"]["lstm_cell"]
+            records[name] = out
+            print(f"chaos {name}: {out['wall_s']:.1f} s", flush=True)
+    return dict(launches), records
 
 
 def multi_in_turns(shard, rpc, zero, compare, timed, in_turns, rng, dev) -> dict:
@@ -5558,6 +5614,11 @@ def main() -> int:
     print(f"cluster phase: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in records.items():
         rec["cluster_launches"] = cluster_counts.get(name, 0)
+    # the cluster's fault paths, phase 5's last part
+    t0 = time.perf_counter()
+    chaos_counts, chaos = chaos_part(dev)
+    chaos["part_s"] = time.perf_counter() - t0
+    print(f"cluster fault scenarios: {chaos['part_s']:.1f} s", flush=True)
 
     # -- 6. the paper's workloads ---------------------------------------------
     t0 = time.perf_counter()
@@ -5621,6 +5682,9 @@ def main() -> int:
     for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
         rec["demo_launches"] = demo_counts.get(rec["name"], 0)
 
+    for rec in list(records.values()) + [multi_record] + split_records + [head_record]:
+        rec["chaos_launches"] = (None if rec["name"].startswith("coded_matvec")
+                                 else chaos_counts.get(rec["name"], 0))
     print(json.dumps({"roofline": rooflined}))
     print(json.dumps({"mesh_steps": meshed}))
     print(json.dumps({"train": trained}))
@@ -5628,6 +5692,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"serve": served}))
     print(json.dumps({"workloads": workloads}))
+    print(json.dumps({"chaos": chaos}))
     print(json.dumps({"in_turns": turns, "apply_less_coded_matvec_ms": apply_less_matvec}))
     print(json.dumps({"kernels": [records[name] for name in KERNELS] + [multi_record]
                       + split_records + [head_record]}))

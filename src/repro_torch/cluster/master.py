@@ -67,7 +67,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Any, Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -104,7 +104,7 @@ def _array_digest(arr: np.ndarray) -> str:
     arr = np.ascontiguousarray(arr)
     h = hashlib.sha256()
     h.update(str((arr.shape, str(arr.dtype))).encode())
-    h.update(arr.tobytes())
+    h.update(arr.reshape(-1).view(np.uint8))    # in place, as shard_digest
     return h.hexdigest()
 
 
@@ -288,7 +288,8 @@ class CodedExecutionEngine:
                  tracer: Optional[Tracer] = None,
                  registry: Optional[MetricsRegistry] = None,
                  transport: Optional[Transport] = None,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 *, awaiting: Sequence[int] = ()):
         self.cfg = cfg
         # the master's device: the default compute backend's, the default
         # predictor's and the kernel decode's; the card unless the caller
@@ -368,6 +369,10 @@ class CodedExecutionEngine:
         # round_id -> per-round event inbox, fed by the collector thread
         self._rounds: Dict[int, "queue.Queue"] = {}  # guarded_by: _rounds_lock
         self._rounds_lock = threading.Lock()
+        # ``awaiting``: the rounds recover() is about to resume -> the events
+        # that reached the collector before the round registered
+        # (see _route_events)
+        self._held: Dict[int, list] = {rid: [] for rid in awaiting}  # guarded_by: _rounds_lock
         # engine-wide per-worker last-event wall time (written only by the
         # collector; racy reads are benign).  Distinguishes "silent because
         # fail-stopped" from "silent because busy with another round's
@@ -555,8 +560,18 @@ class CodedExecutionEngine:
                 for rid, inbox in targets:
                     inbox.put(dataclasses.replace(ev, round_id=rid))
                 continue
+            rid = getattr(ev, "round_id", None)
             with self._rounds_lock:
-                inbox = self._rounds.get(getattr(ev, "round_id", None))
+                inbox = self._rounds.get(rid)
+                if inbox is None and rid in self._held:
+                    # a round recover() has yet to resume: an adopted child
+                    # replays what it finished while the master was down as
+                    # soon as it reconnects, and the transport marks that
+                    # (round, chunk) seen — dropped here, the recomputed
+                    # result would be dropped as a duplicate too and the
+                    # resumed round would starve
+                    self._held[rid].append(ev)
+                    continue
             if inbox is not None:
                 inbox.put(ev)
 
@@ -575,6 +590,8 @@ class CodedExecutionEngine:
             if self._closed:
                 raise EngineClosed("engine is shut down")
             self._rounds[rid] = inbox
+            for ev in self._held.pop(rid, ()):
+                inbox.put(ev)
             inflight = len(self._rounds)
         self._m_inflight.set(inflight)
         return rid, inbox, inflight
@@ -777,7 +794,7 @@ class CodedExecutionEngine:
 
         engine = cls(cfg, injector, compute=compute, predictor=predictor,
                      tracer=tracer, registry=registry, transport=transport,
-                     device=device)
+                     device=device, awaiting=sorted(st.open_rounds))
         with engine._lock:
             engine._round_seq = max(engine._round_seq, st.round_floor)
             engine._tenant_seq = max(engine._tenant_seq, st.tenant_floor)
@@ -808,6 +825,8 @@ class CodedExecutionEngine:
             key = (plan["matrix_digest"], plan["x_digest"],
                    _strategy_key(strategy))
             engine.recovered[key] = handle
+        with engine._rounds_lock:
+            engine._held.clear()        # a skipped round's events go unread
         engine._m_recoveries.labels(transport=engine._transport_kind).inc()
         if engine.tracer.enabled:
             engine.tracer.emit(

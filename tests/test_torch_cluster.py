@@ -354,12 +354,9 @@ class _UploadLog(KernelBackend):
         self.gate = None
         self.entered = threading.Event()
 
-    def _device_shard(self, worker_id, shard_id, shard):
-        with self._lock:
-            cached = (worker_id, shard_id) in self._shards
-        if not cached:          # one worker thread touches its own key
-            self.uploads[(worker_id, shard_id)] += 1
-        return super()._device_shard(worker_id, shard_id, shard)
+    def _store(self, key, shard):
+        self.uploads[key] += 1  # at install (the master's thread) or by a chunk
+        return super()._store(key, shard)
 
     def compute_chunk(self, worker_id, shard_id, shard, r0, r1, x):
         self.entered.set()
@@ -371,14 +368,13 @@ class _UploadLog(KernelBackend):
 
 class TestKernelBackendCache:
     def test_shard_cache_populates_and_evicts(self):
-        """Each worker that computes a chunk uploads its shard once, a second
-        round uploads none again, and ``unload`` evicts them all.  Which
-        workers compute depends on the schedule (an idle worker steals a
-        slow one's queued chunks and computes them from its own shard, and
-        the workers still busy when k of n cover every chunk are
-        cancelled), so each count is read once every worker is idle and
-        held to the workers that computed, among them every worker the
-        round's decode used."""
+        """Each worker uploads its shard once, when it is installed; no round
+        uploads one again, and ``unload`` evicts them all.  Which workers
+        compute depends on the schedule (an idle worker steals a slow one's
+        queued chunks and computes them from its own shard, and the workers
+        still busy when k of n cover every chunk are cancelled), so each
+        count is read once every worker is idle; every worker the round's
+        decode used computed."""
         backend = _UploadLog(CPU)
         assert isinstance(backend, KernelBackend)
         n, k, chunks = 4, 2, 4
@@ -387,15 +383,18 @@ class TestKernelBackendCache:
         try:
             a, x = rng.standard_normal((64, 16)), rng.standard_normal(16)
             data = eng.load_matrix(a, chunks=chunks)
+            installed = {(w, data.shard_id): 1 for w in range(n)}
+            assert backend.uploads == installed
+            assert backend.cache_info()["shards"] == n
             for _ in range(2):
                 out = eng.matvec(data, x, tstrat.GeneralS2C2(n, k, 64, chunks=chunks))
                 np.testing.assert_allclose(out.y, a @ x, rtol=1e-4, atol=1e-4)
                 _wait_idle(eng)
                 used = {w for w in range(n) if out.metrics.useful_rows[w] > 0}
                 assert len(used) >= k and used <= backend.computed
-                assert backend.cache_info()["shards"] == len(backend.computed)
-                # each shard uploaded once, none again by the second round
-                assert backend.uploads == {(w, data.shard_id): 1 for w in backend.computed}
+                assert backend.cache_info()["shards"] == n
+                # each shard uploaded once, at install; no round uploads again
+                assert backend.uploads == installed
             eng.unload(data)
             _wait_idle(eng)
             assert backend.cache_info()["shards"] == 0      # evicted with the tenant
@@ -405,7 +404,8 @@ class TestKernelBackendCache:
     def test_shard_unloaded_mid_chunk_is_not_kept(self):
         """A chunk that uploads its shard after ``unload`` evicted it (a
         straggler mid-task while its tenant unloads) leaves nothing
-        cached once its worker is idle."""
+        cached once its worker is idle: one upload at install, one by the
+        chunk that found it evicted, none kept."""
         backend = _UploadLog(CPU)
         backend.gate = threading.Event()
         events = queue.Queue()
@@ -425,11 +425,46 @@ class TestKernelBackendCache:
             while not worker.idle():
                 assert time.monotonic() < deadline, "worker still busy"
                 time.sleep(0.01)
-            assert backend.uploads == {(0, "t0"): 1}
+            assert backend.uploads == {(0, "t0"): 2}
             assert backend.cache_info()["shards"] == 0
         finally:
             worker.stop()
             worker.join(30)
+
+    def test_install_uploads_the_shard_before_any_chunk(self):
+        """The shard goes up when the worker installs it, so its first chunk
+        computes from a resident copy (an upload inside the first chunk
+        outlasted the process pool's event-silence window on the card)."""
+        backend = _UploadLog(CPU)
+        events = queue.Queue()
+        worker = tcl.worker.Worker(0, events, tcl.NoSlowdown(), compute=backend)
+        worker.start()
+        try:
+            shard = np.arange(32, dtype=np.float64).reshape(4, 8)
+            worker.install_shard("t0", shard)
+            assert backend.uploads == {(0, "t0"): 1}
+            assert backend.cache_info()["shards"] == 1
+            worker.submit(tcl.worker.ChunkTask(0, 0, "t0", [(0, 0, 4)], np.ones(8), 1e-9,
+                                               threading.Event()))
+            done = events.get(timeout=30)
+            np.testing.assert_allclose(done.result, shard @ np.ones(8), rtol=1e-5)
+            assert backend.uploads == {(0, "t0"): 1}
+        finally:
+            worker.stop()
+            worker.join(30)
+
+    def test_reinstall_replaces_the_device_copy(self):
+        """A shard installed again under its id (the rejoin handshake
+        reinstalls a shard whose digest failed) is computed from its new
+        rows, never from the device copy of the old ones."""
+        backend = kernel_backend(CPU)
+        worker = tcl.worker.Worker(0, queue.Queue(), tcl.NoSlowdown(), compute=backend)
+        old, new, x = np.ones((4, 8)), np.arange(32.0).reshape(4, 8), np.ones(8)
+        worker.install_shard("t0", old)
+        np.testing.assert_allclose(backend.compute_chunk(0, "t0", old, 0, 4, x), old @ x)
+        worker.install_shard("t0", new)
+        np.testing.assert_allclose(backend.compute_chunk(0, "t0", new, 0, 4, x), new @ x)
+        assert backend.cache_info()["shards"] == 1
 
     def test_inplace_mutated_x_is_not_served_stale(self):
         backend = kernel_backend(CPU)
@@ -457,6 +492,32 @@ class TestKernelBackendCache:
             np.testing.assert_allclose(out.y, a @ x, rtol=1e-4, atol=1e-4)
         finally:
             eng.shutdown()
+
+
+class TestDigests:
+    def test_digests_hash_the_array_in_place(self):
+        """``shard_digest`` and the journal's ``_array_digest`` hash the
+        array's own buffer (hashlib lets go of the GIL meanwhile): a
+        ``tobytes()`` copy of a 983 MB shard held the GIL past the
+        heartbeat window, so every child digesting its shard for the
+        rejoin handshake drew a §4.4 verdict.  The digests are unchanged."""
+        import hashlib
+        import tracemalloc
+
+        from repro_torch.cluster.master import _array_digest
+        from repro_torch.cluster.worker import shard_digest
+
+        arr = np.random.default_rng(0).standard_normal((2_048, 1_024))    # 16 MB
+        want = hashlib.sha256(str((arr.shape, str(arr.dtype))).encode() + arr.tobytes())
+        for digest in (shard_digest, _array_digest):
+            tracemalloc.start()
+            try:
+                got = digest(arr)
+                peak = tracemalloc.get_traced_memory()[1]
+            finally:
+                tracemalloc.stop()
+            assert got == want.hexdigest()
+            assert peak < arr.nbytes // 16, (digest.__name__, peak)
 
 
 class TestXCacheLRU:

@@ -1,7 +1,8 @@
 """The port stands alone and hides no fallback.
 
-1. No file of ``src/repro_torch/``, nor ``chip_smoke.py``, imports ``jax``
-   or anything of the JAX package ``repro`` (an AST scan).
+1. No file of ``src/repro_torch/``, nor ``chip_smoke.py``, nor a script of
+   the port (``scripts/torch_*.py``), imports ``jax`` or anything of the
+   JAX package ``repro`` (an AST scan).
 2. Importing the port's modules leaves ``jax`` and ``repro`` out of
    ``sys.modules`` (a fresh interpreter).
 3. An entry point left at its default device raises where there is no card
@@ -45,6 +46,13 @@ def test_no_port_file_imports_jax_or_repro():
     assert len(PORT_FILES) >= 15
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in PORT_FILES}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_no_port_script_imports_jax_or_repro():
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert ROOT / "scripts" / "torch_chaos_demo.py" in scripts
+    bad = {p.name: sorted(_imported_roots(p) & set(FORBIDDEN)) for p in scripts}
     assert not {k: v for k, v in bad.items() if v}
 
 
